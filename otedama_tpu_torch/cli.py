@@ -1,0 +1,112 @@
+"""Command-line interface: ``solo`` and ``benchmark`` (counterpart of
+``otedama_tpu/cli.py``).
+
+Run as ``python -m otedama_tpu_torch.cli <command>``. Both commands run on
+the card (``--device cuda``) unless asked for another device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import signal
+import sys
+
+
+def _setup_logging(level: str, logfile: str = "") -> None:
+    handlers: list[logging.Handler] = [logging.StreamHandler()]
+    if logfile:
+        from logging.handlers import RotatingFileHandler
+
+        handlers.append(RotatingFileHandler(
+            logfile, maxBytes=32 * 1024 * 1024, backupCount=5
+        ))
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)-7s %(name)s: %(message)s",
+        handlers=handlers,
+    )
+
+
+async def _run_app(cfg) -> int:
+    from otedama_tpu_torch.app import Application
+
+    app = Application(cfg)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:  # pragma: no cover - non-unix
+            pass
+    await app.start()
+    try:
+        await stop.wait()
+    finally:
+        await app.stop()
+    return 0
+
+
+def cmd_solo(args) -> int:
+    from otedama_tpu_torch.config.schema import load_config
+
+    cfg = load_config(args.config)
+    cfg.mining.enabled = True
+    cfg.mining.device = args.device
+    if args.algorithm:
+        cfg.mining.algorithm = args.algorithm
+    if args.backend:
+        cfg.mining.backend = args.backend
+    _setup_logging(cfg.logging.level, cfg.logging.file)
+    return asyncio.run(_run_app(cfg))
+
+
+def cmd_benchmark(args) -> int:
+    _setup_logging("info")
+    from otedama_tpu_torch.engine import algos
+    from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
+
+    mgr = AlgorithmManager(args.backend, device=args.device)
+    names = [args.algorithm] if args.algorithm else algos.names(implemented_only=True)
+    results = {}
+    for name in names:
+        r = mgr.benchmark(name, budget_hashes=args.hashes)
+        results[f"{name}/{r.backend}"] = r.hashrate
+        print(f"{name:10s} {r.backend:12s} {r.hashrate:>14,.0f} H/s")
+    print(json.dumps({"benchmarks_h_per_s": results, "device": args.device}))
+    return 0 if results else 1
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="otedama-tpu-torch",
+        description="Solo sha256d mining on a CUDA card (PyTorch port).",
+    )
+    parser.add_argument("-c", "--config", default=None, help="config YAML path")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("solo", help="solo-mine against the mock chain")
+    p.add_argument("-a", "--algorithm", default=None)
+    p.add_argument("-b", "--backend", default=None,
+                   help="auto (= cuda) | cuda | torch | python")
+    p.add_argument("--device", default="cuda", help="torch device")
+    p.set_defaults(fn=cmd_solo)
+
+    p = sub.add_parser("benchmark", help="benchmark the search backend")
+    p.add_argument("-a", "--algorithm", default=None)
+    p.add_argument("-b", "--backend", default="auto")
+    p.add_argument("-n", "--hashes", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="torch device")
+    p.set_defaults(fn=cmd_benchmark)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""Block templates and the in-process mock chain (counterpart of
+``otedama_tpu/pool/blockchain.py`` ``BlockTemplate``, ``SubmitOutcome`` and
+``MockChainClient``, without the reference's fault-injection gates).
+
+The mock is a regtest-style chain: it hands out templates, verifies
+submitted headers against its own nbits, and advances height.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import struct
+import time
+
+from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.utils.sha256_host import sha256d
+
+log = logging.getLogger("otedama.pool.chain")
+
+
+@dataclasses.dataclass
+class BlockTemplate:
+    height: int
+    prev_hash: bytes            # header byte order
+    coinb1: bytes
+    coinb2: bytes
+    merkle_branch: list[bytes]
+    version: int
+    nbits: int
+    ntime: int
+    reward: int                 # atomic units (coinbase value)
+
+
+@dataclasses.dataclass
+class SubmitOutcome:
+    accepted: bool
+    block_hash: str = ""
+    reason: str = ""
+
+
+class MockChainClient:
+    """In-process regtest-style chain for tests and solo-mode dry runs.
+
+    Deterministic: templates derive entirely from the chain state (height,
+    tip, a race counter), so a seeded test replays bit-identically.
+    ``bump_template()`` stages a second distinct template at the same
+    height; ``reorg(depth)`` rewinds the tip onto a fork; ``reject_stale``
+    refuses submits whose prev-hash is not the current tip.
+
+    The default nbits 0x207FFFFF is regtest: half of all hashes win. Pass
+    0x1d00ffff for difficulty 1.
+    """
+
+    def __init__(self, nbits: int = 0x207FFFFF, reward: int = 50 * 100_000_000,
+                 *, reject_stale: bool = False):
+        self.nbits = nbits
+        self.reward = reward
+        self.height = 100
+        self.tip = b"\x00" * 32
+        self.reject_stale = reject_stale
+        self.submitted: list[tuple[int, bytes, str]] = []
+        self.confirmations: dict[str, int] = {}
+        self.template_nonce = 0     # bumped per race/reorg: changes coinb1
+        self.reorgs = 0
+
+    def bump_template(self) -> None:
+        """Stage a template race: same height and prev, other coinbase."""
+        self.template_nonce += 1
+
+    def reorg(self, depth: int) -> None:
+        """Rewind ``depth`` blocks onto a deterministic fork tip."""
+        depth = min(depth, len(self.submitted))
+        if depth <= 0:
+            return
+        for _, _, orphaned_hash in self.submitted[-depth:]:
+            self.confirmations.pop(orphaned_hash, None)
+        del self.submitted[-depth:]
+        self.height -= depth
+        self.reorgs += 1
+        self.tip = sha256d(b"mock-fork" + struct.pack("<II", self.height,
+                                                      self.reorgs))
+        self.template_nonce += 1
+
+    async def get_block_template(self) -> BlockTemplate:
+        return BlockTemplate(
+            height=self.height + 1,
+            prev_hash=self.tip,
+            coinb1=bytes.fromhex("01000000010000000000000000")
+            + struct.pack("<I", (self.height + 1) ^ (self.template_nonce << 20)),
+            coinb2=bytes.fromhex("ffffffff0100f2052a01000000"),
+            merkle_branch=[],
+            version=0x20000000,
+            nbits=self.nbits,
+            ntime=int(time.time()),
+            reward=self.reward,
+        )
+
+    async def submit_block(self, header: bytes) -> SubmitOutcome:
+        if len(header) != 80:
+            return SubmitOutcome(False, reason="bad header size")
+        if self.reject_stale and header[4:36] != self.tip:
+            return SubmitOutcome(False, reason="stale-prevblk")
+        digest = sha256d(header)
+        if not tgt.hash_meets_target(digest, tgt.bits_to_target(self.nbits)):
+            return SubmitOutcome(False, reason="high-hash")
+        block_hash = digest[::-1].hex()
+        self.height += 1
+        self.tip = digest
+        self.submitted.append((self.height, header, block_hash))
+        self.confirmations[block_hash] = 1
+        log.info("mock chain accepted block %d %s", self.height, block_hash[:16])
+        return SubmitOutcome(True, block_hash=block_hash)
+
+    async def get_confirmations(self, block_hash: str) -> int:
+        if block_hash not in self.confirmations:
+            return -1  # orphaned / unknown
+        self.confirmations[block_hash] += 1
+        return self.confirmations[block_hash]
+
+    async def get_network_difficulty(self) -> float:
+        return tgt.target_to_difficulty(tgt.bits_to_target(self.nbits))

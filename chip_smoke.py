@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card: ``python3 chip_smoke.py``.
 
-Builds the port's kernel from the sources in this checkout, drives the
-solo sha256d main path through the entry points a user calls, and checks
-every phase; any failure exits non-zero. Phases:
+Builds the port's kernels from the sources in this checkout (one nvcc per
+source, started together), drives the solo sha256d and scrypt main paths
+through the entry points a user calls, and checks every phase; any failure
+exits non-zero. Phases:
 
-1. card: name, power limit, clocks, versions; build the kernel;
+1. card: name, power limit, clocks, versions; build the kernels;
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
    (few winners, target at a lane's hash and +-1, a ragged count, a
@@ -16,7 +17,26 @@ every phase; any failure exits non-zero. Phases:
    engine's default 2^31-nonce grouped launches; every block is re-hashed
    with hashlib, the kernel must have launched and the plain version not;
 5. times: the kernel's time per 2^31-nonce launch (CUDA events, after
-   warm-up) beside its bound.
+   warm-up) beside its bound;
+6. scrypt known answer: digests of a fixed header through the ROMix
+   kernel, and the whole search kernel path's winners, against
+   hashlib.scrypt;
+7. scrypt BlockMix kernels B3 and B4 against the plain version at the
+   main path's shape [32, chunk];
+8. scrypt ROMix kernel B5 against the plain version, full V and half_v,
+   at the main path's shape;
+9. scrypt search buffers against the plain version (n <= k: every word;
+   n > k: count and min; a clamp at ``last`` mid-chunk; a base near 2^32);
+10. scrypt main path: ``Application`` in solo mode with
+   ``mining.algorithm = "scrypt"`` on the card for a fixed window against
+   a mock chain at nbits 0x1f00ffff (about one share per 2^16 hashes);
+   every share re-hashes with hashlib.scrypt at or under its target, the
+   ROMix kernel must have launched and the plain version not;
+11. the ``blockmix`` tier (B3 and B4) gives the same winners as the
+   ``romix`` tier for one chunk, and three searches in flight on one
+   backend (sharing its V) give what they give one by one;
+12. scrypt times per chunk (CUDA events, median of rounds) for the
+   ``romix``, ``romix-half`` and ``blockmix`` tiers beside their bounds.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -26,8 +46,10 @@ rest of the repository beside it, it exits non-zero and prints neither.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import hashlib
 import json
+import logging
 import os
 import struct
 import subprocess
@@ -44,6 +66,8 @@ GENESIS_HASH = "000000000019d6689c085ae165831e934ff763ae46a2a6c172b3f1b60a8ce26f
 BLOCKS_NEEDED = 3
 MAIN_PATH_BOUND_S = 180.0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+SCRYPT_NBITS = 0x1F00FFFF     # about one scrypt share per 2^16 hashes
+SCRYPT_WINDOW_S = 20.0        # the scrypt main path's fixed window
 
 
 class SmokeFailure(Exception):
@@ -68,6 +92,413 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+def median_ms(fn, stream, reps: int, rounds: int = 3):
+    """Median over ``rounds`` of the mean time of ``reps`` calls of ``fn``
+    (which launches on ``stream``), by CUDA events, after one warm-up
+    call. Returns (median, the rounds)."""
+    import torch
+
+    with torch.cuda.stream(stream):
+        fn()
+        round_ms = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(reps):
+                fn()
+            stop.record(stream)
+            stop.synchronize()
+            round_ms.append(start.elapsed_time(stop) / reps)
+    return sorted(round_ms)[rounds // 2], round_ms
+
+
+class ErrorCount(logging.Handler):
+    """Counts the ERROR records of a logger (a device winner that fails the
+    backend's host re-check is logged as one)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.n = 0
+
+    def emit(self, record):
+        self.n += 1
+
+
+def scrypt_value(header80: bytes) -> int:
+    """hashlib's scrypt of a header, as the little-endian integer."""
+    return int.from_bytes(hashlib.scrypt(header80, salt=header80, n=1024, r=1,
+                                         p=1, dklen=32), "little")
+
+
+def scrypt_main_path(chain_nbits: int, window_s: float):
+    """Phase 10: solo scrypt ``Application`` on the card for ``window_s``
+    seconds once the engine runs. Returns what the checks need."""
+    import torch
+
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+
+    cfg = AppConfig()
+    cfg.mining.algorithm = "scrypt"
+    cfg.mining.device = "cuda"
+    cfg.work.enabled = True
+    cfg.work.poll_seconds = 0.5
+    chain = MockChainClient(nbits=chain_nbits)
+    app = Application(cfg, chain=chain)
+    shares, outcomes = [], []
+    on_share, submit = app._on_share, chain.submit_block
+
+    async def record_share(share):
+        shares.append((share, app.worksource.get_job(share.job_id)))
+        await on_share(share)
+
+    async def record_submit(header):
+        outcome = await submit(header)
+        outcomes.append(outcome)
+        return outcome
+
+    app._on_share = record_share
+    chain.submit_block = record_submit
+
+    async def run():
+        await app.start()
+        try:
+            t_end = time.monotonic() + MAIN_PATH_BOUND_S
+            while app.engine.state.value != "running":
+                check(time.monotonic() < t_end, "scrypt engine never started")
+                check(not any(t.done() and not t.cancelled() and t.exception()
+                              for t in app._tasks),
+                      "a background task failed before the engine started")
+                await asyncio.sleep(0.05)
+            h0, t0 = app.engine.stats.hashes, time.monotonic()
+            await asyncio.sleep(window_s)
+            h1, t1 = app.engine.stats.hashes, time.monotonic()
+            return h1 - h0, t1 - t0
+        finally:
+            await app.stop()
+
+    torch.cuda.reset_peak_memory_stats()
+    hashes, seconds = asyncio.run(run())
+    peak = torch.cuda.max_memory_allocated()
+    backend = next(iter(app.engine.backends.values()))
+    result = dict(hashes=hashes, seconds=seconds, shares=shares,
+                  outcomes=outcomes, total_hashes=app.engine.stats.hashes,
+                  backend=backend.name, chunk=backend.chunk,
+                  batch=app.engine.planned_batch(backend),
+                  depth=app.engine.config.pipeline_depth, peak=peak)
+    del app, backend
+    torch.cuda.empty_cache()
+    return result
+
+
+def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
+    """Phases 6-12 (scrypt); returns the kernels' records for B3-B5."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.engine.jobs import header_from_share
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import scrypt_torch as sct
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.runtime.search import (
+        SCRYPT_CUDA_CHUNK,
+        JobConstants,
+        ScryptCudaBackend,
+    )
+
+    chunk = SCRYPT_CUDA_CHUNK
+    k = 16
+    full = 0xFFFFFFFF
+    rng = np.random.default_rng(SEED + 1)
+    max_err = {"B3": 0, "B4": 0, "B5": 0}
+    plain_ms = {}
+
+    def words(*shape):
+        w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+        return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+    def err(a, b):
+        """max |a - b| over the uint32 values of two int32 tensors"""
+        return int(((a.long() & full) - (b.long() & full)).abs().max().item())
+
+    def host(t):
+        return t.cpu().numpy().view(np.uint32)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    # -- 6. known answer --------------------------------------------------------
+    phase("6 scrypt known answer: hashlib.scrypt")
+    h76 = bytes(rng.integers(0, 256, 76, dtype=np.uint8))
+    h19 = sct.header_words19(h76)
+    nonces = [0, 1, 0x7FFFFFFF, full]
+    d = sct.scrypt_1024_1_1(h19, torch.tensor(nonces, device=dev),
+                            romix_fn=lambda Xt: scc.romix(Xt))
+    got = torch.stack(d).T.cpu().numpy().astype(">u4")
+    for lane, nw in enumerate(nonces):
+        header80 = h76 + struct.pack(">I", nw)
+        want = hashlib.scrypt(header80, salt=header80, n=1024, r=1, p=1, dklen=32)
+        check(got[lane].tobytes() == want,
+              f"scrypt digest of nonce {nw:#x}: {got[lane].tobytes().hex()} "
+              f"!= hashlib {want.hex()}")
+    print(f"   ROMix kernel in the pipeline: {len(nonces)} digests equal "
+          "hashlib.scrypt", flush=True)
+    base, span = full - 31, 64                  # the window wraps 2^32
+    vals = {(base + i) & full: scrypt_value(h76 + struct.pack(">I", (base + i) & full))
+            for i in range(span)}
+    target = sorted(vals.values())[2]
+    expect = sorted(vals, key=lambda nw: (nw - base) & full)
+    expect = [nw for nw in expect if vals[nw] <= target]
+    limbs = tgt.target_to_limbs(target)
+    for tier in scc.TIERS:
+        b = host(scc.scrypt_search(h19, base, limbs, span - 1, n=span, k=k,
+                                   device=dev, tier=tier))
+        check(int(b[2 * k]) == 3 and b[:3].tolist() == expect
+              and b[k:k + 3].tolist() == [vals[nw] >> 224 for nw in expect]
+              and int(b[2 * k + 2]) == min(vals.values()) >> 224,
+              f"search kernels ({tier}) vs hashlib: {b.tolist()}")
+    print(f"   search kernels, every tier: the 3 winners of {span} lanes "
+          "across 2^32 equal hashlib's", flush=True)
+
+    # -- 7. B3, B4 -----------------------------------------------------------
+    phase(f"7 scrypt BlockMix kernels B3, B4 vs plain version, [32, {chunk}]")
+    X, V = words(32, chunk), words(32, chunk)
+    for name, v in (("B3", None), ("B4", V)):
+        a = scc.blockmix(X, v)
+        sct.blockmix(X, v)      # warm-up: the first call pays set-up
+        sync()
+        t0 = time.monotonic()
+        b = sct.blockmix(X, v)
+        sync()
+        plain_ms[name] = (time.monotonic() - t0) * 1e3
+        max_err[name] = err(a, b)
+        check(max_err[name] == 0, f"{name}: kernel != plain version")
+        print(f"   {name}: equal; plain version {plain_ms[name]:.1f} ms", flush=True)
+
+    # -- 8. B5 -------------------------------------------------------------------
+    phase(f"8 scrypt ROMix kernel B5 vs plain version, [32, {chunk}]")
+    X = words(32, chunk)
+    for half in (False, True):
+        a = scc.romix(X, half_v=half)
+        sync()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        b = sct.romix(X, half_v=half)
+        sync()
+        t = (time.monotonic() - t0) * 1e3
+        if not half:
+            plain_ms["B5"] = t
+        e = err(a, b)
+        max_err["B5"] = max(max_err["B5"], e)
+        check(e == 0, f"B5 half_v={half}: kernel != plain version")
+        print(f"   half_v={half}: equal; plain version {t / 1e3:.1f} s", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+    # -- 9. search buffers ------------------------------------------------------------
+    phase("9 scrypt search kernels vs plain version")
+
+    def compare(name, base, top, last, n):
+        h = sct.header_words19(bytes(rng.integers(0, 256, 76, dtype=np.uint8)))
+        lb = np.asarray([top] + [full] * 7, dtype=np.uint32)
+        a = host(scc.scrypt_search(h, base, lb, last, n=n, k=k, device=dev))
+        b = host(sct.scrypt_search_buffer(h, base, lb, last, n=n, k=k,
+                                          device=dev))
+        nb = int(b[2 * k])
+        words_ = slice(None) if nb <= k else slice(2 * k, None)
+        check(np.array_equal(a[words_], b[words_]),
+              f"{name}: kernel {a.tolist()} != plain {b.tolist()}")
+        print(f"   {name}: n={nb}, min_h0={b[2 * k + 2]:#010x} equal", flush=True)
+        return nb
+
+    # top limb 2^32 * 2 / chunk: about two winners in the chunk
+    check(compare(f"{chunk} lanes, few winners", int(rng.integers(1 << 32)),
+                  (1 << 33) // chunk, chunk - 1, chunk) <= k,
+          "few-winner case overflowed")
+    check(compare("4096 lanes, n > k", 77, 1 << 26, 4095, 4096) > k,
+          "overflow case did not overflow")
+    compare("last mid-chunk, base near 2^32", full - 1500, 1 << 24, 2999, 4096)
+
+    # -- 10. main path --------------------------------------------------------------
+    phase("10 scrypt main path: solo Application on the card, nbits 0x1f00ffff")
+    for counter in (scc.romix_launches, scc.search_launches,
+                    scc.blockmix_launches, scc.blockmix_xor_launches, sct.calls):
+        counter.reset()
+    # every share is a block candidate that the mock chain refuses: keep
+    # its one warning per refusal out of the log (they are counted below)
+    logging.getLogger("otedama.app").setLevel(logging.ERROR)
+    recheck_failures = ErrorCount()
+    logging.getLogger("otedama.runtime.search").addHandler(recheck_failures)
+    main = scrypt_main_path(SCRYPT_NBITS, SCRYPT_WINDOW_S)
+    logging.getLogger("otedama.runtime.search").removeHandler(recheck_failures)
+    logging.getLogger("otedama.app").setLevel(logging.NOTSET)
+    check(recheck_failures.n == 0, f"{recheck_failures.n} device winners "
+          "failed the backend's host re-check")
+    romix_main = scc.romix_launches.value
+    search_main = scc.search_launches.value
+    plain_main = sct.calls.value
+    check(romix_main > 0 and search_main > 0, "scrypt main path launched no kernel")
+    check(plain_main == 0, f"scrypt main path called the plain version "
+          f"{plain_main} times")
+    check(scc.blockmix_launches.value == scc.blockmix_xor_launches.value == 0,
+          "the romix tier launched BlockMix kernels")
+    check(main["shares"], "scrypt main path found no share")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(main["peak"] < total, "scrypt main path outgrew the card's memory")
+    for share, job in main["shares"]:
+        check(job is not None, f"share of an unknown job {share.job_id}")
+        header = header_from_share(job, share.extranonce2, share.ntime,
+                                   share.nonce_word)
+        value = scrypt_value(header)
+        check(value.to_bytes(32, "little") == share.digest
+              and value <= job.share_target,
+              f"share {share.nonce_hex} fails the hashlib.scrypt re-check")
+    accepted = sum(o.accepted for o in main["outcomes"])
+    refused = {}
+    for o in main["outcomes"]:
+        if not o.accepted:
+            refused[o.reason] = refused.get(o.reason, 0) + 1
+    e2e = main["hashes"] / main["seconds"]
+    print(f"   backend {main['backend']}, chunk {main['chunk']}, batch "
+          f"{main['batch']}: {main['hashes']} hashes in {main['seconds']:.2f} s"
+          f" = {e2e:.1f} H/s end to end; {len(main['shares'])} shares, all "
+          f"re-hashed with hashlib.scrypt; block candidates submitted "
+          f"{len(main['outcomes'])}: accepted {accepted}, refused {refused} "
+          f"(the mock chain checks blocks by sha256d); host re-check "
+          f"failures {recheck_failures.n}; romix launches "
+          f"{romix_main}, search launches {search_main}, plain-version calls "
+          f"{plain_main}; peak device memory {main['peak'] / 2**30:.2f} GiB "
+          f"of {total / 2**30:.2f} at pipeline depth {main['depth']}",
+          flush=True)
+
+    # -- 11. the blockmix tier ----------------------------------------------------
+    phase("11 scrypt blockmix tier (B3, B4) vs romix tier, one chunk")
+    jc = JobConstants.from_header_prefix(
+        bytes(rng.integers(0, 256, 76, dtype=np.uint8)),
+        tgt.limbs_to_target([(1 << 34) // chunk] + [full] * 7))  # ~4 a chunk
+    base = int(rng.integers(1 << 32))
+    romix_tier = ScryptCudaBackend(dev)
+    want = romix_tier.search(jc, base, chunk)
+    # three searches in flight on one backend, as the engine keeps them:
+    # they share its V scratch and must give what they give one by one
+    windows = [((base + i * chunk) & full, chunk) for i in range(3)]
+    alone = [romix_tier.search(jc, b, c) for b, c in windows]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        together = list(pool.map(lambda w: romix_tier.search(jc, *w), windows))
+    for a, b in zip(alone, together):
+        check([w.nonce_word for w in a.winners] == [w.nonce_word for w in b.winners]
+              and a.best_hash_hi == b.best_hash_hi,
+              "concurrent searches on one backend differ from sequential ones")
+    print(f"   3 concurrent searches on one romix-tier backend equal 3 "
+          f"sequential ones ({sum(len(a.winners) for a in alone)} winners)",
+          flush=True)
+    del romix_tier
+    torch.cuda.empty_cache()
+    from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
+
+    bm_backend = AlgorithmManager("auto").backend_for("scrypt", tier="blockmix")
+    scc.blockmix_launches.reset()
+    scc.blockmix_xor_launches.reset()
+    got = bm_backend.search(jc, base, chunk)
+    bm_launches = (scc.blockmix_launches.value, scc.blockmix_xor_launches.value)
+    check([(w.nonce_word, w.digest) for w in got.winners]
+          == [(w.nonce_word, w.digest) for w in want.winners]
+          and got.best_hash_hi == want.best_hash_hi,
+          f"blockmix tier winners {[w.nonce_hex for w in got.winners]} != "
+          f"romix tier {[w.nonce_hex for w in want.winners]}")
+    check(all(bm_launches), "the blockmix tier launched no BlockMix kernel")
+    print(f"   {bm_backend.name}: {len(got.winners)} winners equal the romix "
+          f"tier's; B3 launches {bm_launches[0]}, B4 launches {bm_launches[1]}",
+          flush=True)
+    del bm_backend
+    torch.cuda.empty_cache()
+
+    # -- 12. times ---------------------------------------------------------------------
+    phase(f"12 scrypt times per chunk of {chunk} lanes")
+    stream = torch.cuda.Stream(dev)
+    X, V, Y = words(32, chunk), words(32, chunk), words(32, chunk)
+    ms = {}
+    ms["B3"], _ = median_ms(lambda: scc.blockmix(X, out=Y, stream=stream),
+                            stream, 20)
+    ms["B4"], _ = median_ms(lambda: scc.blockmix(X, V, out=Y, stream=stream),
+                            stream, 20)
+    scratch = torch.empty(scc.scratch_words(chunk), dtype=torch.int32, device=dev)
+    ms["B5"], rounds_b5 = median_ms(
+        lambda: scc.romix(X, scratch=scratch, stream=stream), stream, 3)
+    xs = torch.empty(32 * chunk, dtype=torch.int32, device=dev)
+    out = torch.empty(2 * k + 3, dtype=torch.int32, device=dev)
+    lb = tgt.target_to_limbs(tgt.bits_to_target(SCRYPT_NBITS))
+    tier_ms = {}
+    for tier in scc.TIERS:
+        tier_ms[tier], rounds = median_ms(
+            lambda: scc.scrypt_search(h19, 0, lb, chunk - 1, n=chunk, k=k,
+                                      device=dev, tier=tier, stream=stream,
+                                      out=out, scratch=(xs, scratch)),
+            stream, 2)
+        half = tier == "romix-half"
+        bound = scc.ops_per_hash(half) * chunk / int_ops_per_s * 1e3
+        print(f"   search, {tier}: {tier_ms[tier]:.2f} ms per chunk = "
+              f"{chunk / tier_ms[tier] * 1e3:.0f} H/s (rounds "
+              + ", ".join(f"{t:.2f}" for t in rounds)
+              + f"); bound {bound:.2f} ms = {chunk / bound * 1e3:.0f} H/s "
+              f"({scc.ops_per_hash(half):.0f} int32 ops/hash"
+              + (", half of the mix steps recomputing a row" if half else "")
+              + ")", flush=True)
+    for lanes in (1 << 16, 1 << 17, 1 << 18):   # the chunk sweep
+        t, _ = median_ms(
+            lambda: scc.scrypt_search(h19, 0, lb, lanes - 1, n=lanes, k=k,
+                                      device=dev, stream=stream, out=out,
+                                      scratch=(xs, scratch)), stream, 2)
+        print(f"   search, romix, chunk 2^{lanes.bit_length() - 1}: {t:.2f} ms"
+              f" = {lanes / t * 1e3:.0f} H/s", flush=True)
+    del scratch, xs
+    torch.cuda.empty_cache()
+
+    row = scc.ROW_WORDS * 4
+    work = {  # (int32 ops, bytes in + out) of one launch at [32, chunk]
+        "B3": (scc.BLOCKMIX_OPS * chunk, 2 * row * chunk),
+        "B4": ((scc.ROW_WORDS + scc.BLOCKMIX_OPS) * chunk, 3 * row * chunk),
+        "B5": (scc.romix_ops() * chunk, 2 * row * chunk),
+    }
+    launches = {"B3": bm_launches[0], "B4": bm_launches[1], "B5": romix_main}
+    meta = {
+        "B3": ("scrypt_blockmix", "otedama_tpu/kernels/scrypt_pallas.py:89",
+               "ScryptCudaBackend(tier='blockmix'), one chunk (phase 11)"),
+        "B4": ("scrypt_blockmix_xor", "otedama_tpu/kernels/scrypt_pallas.py:95",
+               "ScryptCudaBackend(tier='blockmix'), one chunk (phase 11)"),
+        "B5": ("scrypt_romix", "otedama_tpu/kernels/scrypt_pallas.py:176",
+               "solo scrypt Application (phase 10)"),
+    }
+    records = []
+    for key, (ops, nbytes) in work.items():
+        ops_ms = ops / int_ops_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        name, replaces, path = meta[key]
+        print(f"   {key} {name}: {ms[key]:.3f} ms per launch, bound "
+              f"{max(ops_ms, bytes_ms):.3f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), plain "
+              f"version {plain_ms[key]:.1f} ms; {card}", flush=True)
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "otedama_tpu_torch/kernels/csrc/scrypt.cu",
+            "replaces": replaces,
+            "launches": launches[key],
+            "max_abs_err": max_err[key],
+            "ms": ms[key],
+            "plain_ms": plain_ms[key],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "path": path,
+        })
+    print(f"   B5 rounds, ms per launch: "
+          + ", ".join(f"{t:.2f}" for t in rounds_b5), flush=True)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -80,6 +511,7 @@ def main() -> int:
 
     from otedama_tpu_torch.app import Application
     from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
     from otedama_tpu_torch.kernels import sha256_cuda as sc
     from otedama_tpu_torch.kernels import sha256_torch as st
     from otedama_tpu_torch.kernels import target as tgt
@@ -140,12 +572,17 @@ def main() -> int:
           f"python {sys.version.split()[0]}; {props.multi_processor_count} "
           f"SMs, max SM clock {clock_mhz:.0f} MHz", flush=True)
     t0 = time.monotonic()
-    sc.load_library()
-    print(f"   kernel built and loaded in {time.monotonic() - t0:.1f} s "
-          f"({sc.build_info['library']})", flush=True)
-    for line in sc.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"   ptxas: {line.strip()}", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(m.load_library) for m in (sc, scc)]:
+            f.result()
+    print(f"   kernels built and loaded in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    for mod in (sc, scc):
+        print(f"   {mod.build_info['library']}: nvcc "
+              f"{mod.build_info.get('seconds', 0.0):.1f} s", flush=True)
+        for line in mod.build_info.get("ptxas", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"   ptxas: {line.strip()}", flush=True)
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -322,7 +759,7 @@ def main() -> int:
           f"{plain_main_s * 1e3:.0f} ms for a 2^31-lane launch; "
           f"{card}", flush=True)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "sha256d_search",
         "route": "cuda",
         "source": "otedama_tpu_torch/kernels/csrc/sha256d_search.cu",
@@ -334,7 +771,12 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
-    }]}))
+        "path": "solo sha256d Application (phase 4)",
+    }]
+    kernels += scrypt_phases(dev, card, props.multi_processor_count * 64
+                             * clock_mhz * 1e6)
+
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

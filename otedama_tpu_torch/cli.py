@@ -82,20 +82,23 @@ def cmd_benchmark(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="otedama-tpu-torch",
-        description="Solo sha256d mining on a CUDA card (PyTorch port).",
+        description="Solo sha256d or scrypt mining on a CUDA card "
+                    "(PyTorch port).",
     )
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("solo", help="solo-mine against the mock chain")
-    p.add_argument("-a", "--algorithm", default=None)
+    p.add_argument("-a", "--algorithm", default=None,
+                   help="sha256d (default) | sha256 | scrypt")
     p.add_argument("-b", "--backend", default=None,
                    help="auto (= cuda) | cuda | torch | python")
     p.add_argument("--device", default="cuda", help="torch device")
     p.set_defaults(fn=cmd_solo)
 
     p = sub.add_parser("benchmark", help="benchmark the search backend")
-    p.add_argument("-a", "--algorithm", default=None)
+    p.add_argument("-a", "--algorithm", default=None,
+                   help="one algorithm (default: every implemented one)")
     p.add_argument("-b", "--backend", default="auto")
     p.add_argument("-n", "--hashes", type=int, default=None)
     p.add_argument("--device", default="cuda", help="torch device")

@@ -74,7 +74,7 @@ def _mini_yaml(text: str) -> dict:
 @dataclasses.dataclass
 class MiningConfig:
     enabled: bool = True
-    algorithm: str = "sha256d"
+    algorithm: str = "sha256d"   # sha256d | sha256 | scrypt (litecoin)
     backend: str = "auto"        # auto (= cuda) | cuda | torch | python
     device: str = "cuda"         # torch device of the backend
     batch_size: int = 1 << 24

@@ -1,9 +1,10 @@
 """Algorithm manager: backend selection, warm builds and benchmarks
 (counterpart of ``otedama_tpu/engine/algo_manager.py``).
 
-``"auto"`` means the card: it picks ``cuda`` and raises when no CUDA device
-is visible. The plain version runs only when a caller asks for it with
-``kind="torch"`` (and a ``device``).
+``"auto"`` means the card: it picks ``cuda`` (for scrypt, its default
+``romix`` tier) and raises when no CUDA device is visible. The plain
+version runs only when a caller asks for it with ``kind="torch"`` (and a
+``device``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ class AlgorithmManager:
                 f"(available: {spec.backends})"
             )
         kwargs.setdefault("device", self.device)
-        return make_backend(kind, algorithm=algorithm, **kwargs)
+        return make_backend(kind, algorithm=spec.name, **kwargs)
 
     def prepare_backend(self, algorithm: str, kind: str | None = None,
                         warm_count=None, **kwargs):
@@ -78,7 +79,9 @@ class AlgorithmManager:
         budget_hashes: int | None = None,
     ) -> BenchmarkResult:
         """Timed production-path search over a synthetic job (target 0, so
-        no winners). Blocking: it refuses to run on an event loop's thread."""
+        no winners). The default budget is the backend's preferred batch,
+        or one chunk for a memory-hard algorithm. Blocking: it refuses to
+        run on an event loop's thread."""
         try:
             asyncio.get_running_loop()
         except RuntimeError:
@@ -90,7 +93,10 @@ class AlgorithmManager:
         backend = self.backend_for(algorithm, kind)
         jc = synthetic_job_constants()
         if budget_hashes is None:
-            budget_hashes = getattr(backend, "preferred_batch", 1 << 18)
+            if algos.get(algorithm).memory_hard:
+                budget_hashes = getattr(backend, "chunk", 1 << 6)
+            else:
+                budget_hashes = getattr(backend, "preferred_batch", 1 << 18)
         backend.precompile(jc)
         t0 = time.monotonic()
         backend.search(jc, 1 << 20, budget_hashes)

@@ -2,9 +2,10 @@
 ``otedama_tpu/engine/algos.py``).
 
 An entry declares which search backends implement it; asking for an
-unimplemented (algorithm, backend) pair is a loud error. This slice of the
-port carries the sha256 family only. ``planning_hashrate`` is 0.0: no rate
-has been measured for the port yet, and no TPU rate stands in for one.
+unimplemented (algorithm, backend) pair is a loud error. The port carries
+the sha256 family and scrypt. ``planning_hashrate`` is 0.0: the port's
+rates are measured on the card (``PERF.md``), and no TPU rate stands in
+for one.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ class AlgorithmSpec:
     name: str
     aliases: tuple[str, ...] = ()
     backends: tuple[str, ...] = ()      # implemented search backends
+    memory_hard: bool = False           # scrypt family: V scratch per lane
     planning_hashrate: float = 0.0      # H/s per card, pre-measurement
 
     def implemented(self) -> bool:
@@ -57,4 +59,10 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="sha256",
     backends=("cuda", "torch", "python"),
+))
+register(AlgorithmSpec(
+    name="scrypt",
+    aliases=("litecoin",),
+    backends=("cuda", "torch", "python"),
+    memory_hard=True,
 ))

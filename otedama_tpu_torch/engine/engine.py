@@ -172,10 +172,16 @@ class MiningEngine:
         log.info("engine stopped")
 
     def planned_batch(self, backend) -> int:
-        """The batch size the hot loop will dispatch to ``backend``."""
+        """The batch size the hot loop will dispatch to ``backend``: the
+        configured batch, raised to the backend's ``preferred_batch`` under
+        ``auto_batch``, and clamped to its ``max_batch`` (the scrypt
+        backends cap one search call at four chunks)."""
         batch_size = self.config.batch_size
         if self.config.auto_batch:
             batch_size = max(batch_size, getattr(backend, "preferred_batch", 0))
+        max_batch = getattr(backend, "max_batch", None)
+        if max_batch:
+            batch_size = min(batch_size, max_batch)
         return batch_size
 
     # -- the hot host loop --------------------------------------------------

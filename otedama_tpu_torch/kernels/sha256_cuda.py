@@ -2,9 +2,8 @@
 
 ``csrc/sha256d_search.cu`` replaces the Pallas TPU kernel
 ``otedama_tpu/kernels/sha256_pallas.py`` ``_search_kernel``. It is built at
-first use with ``nvcc`` for ``sm_90a`` into ``build/otedama_tpu_torch/``
-beside the package, as a shared library with a plain C entry point loaded
-through ``ctypes`` (seconds to build, no PyTorch headers). The job words
+first use by ``cuda_build`` (nvcc for ``sm_90a``, a shared library with a
+plain C entry point loaded through ``ctypes``). The job words
 ride in as kernel parameters, so a launch copies nothing to the device.
 
 ``sha256d_search`` launches on a CUDA stream without synchronizing and
@@ -17,18 +16,12 @@ kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from otedama_tpu_torch.kernels import LaunchCounter, sha256_torch
+from otedama_tpu_torch.kernels import LaunchCounter, cuda_build, sha256_torch
 
 _M32 = 0xFFFFFFFF
 
@@ -46,10 +39,8 @@ JOB_WORDS = 22
 # winners, so 16 slots overflow only at test-easy targets
 K_WINNERS = 16
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sha256d_search.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "otedama_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = "sha256d_search.cu"
+HEADERS = ("sha256_device.cuh",)
 
 # kernel launches through the wrapper (not the plain version's calls)
 launches = LaunchCounter()
@@ -91,16 +82,6 @@ def unpack_winner_buffer(buf, k: int):
     return buf[:k], buf[k:2 * k], int(buf[2 * k]), int(buf[2 * k + 2])
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once per source content) and load the kernel library. Raises
     if the toolkit is missing or the build fails."""
@@ -108,26 +89,8 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"libsha256d_search-{tag}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.monotonic()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-            build_info.update(seconds=time.monotonic() - t0,
-                              ptxas=proc.stderr.strip())
-        build_info["library"] = str(so)
-        lib = ctypes.CDLL(str(so))
+        lib, info = cuda_build.build(SOURCE, HEADERS)
+        build_info.update(info)
         lib.otedama_sha256d_search.argtypes = [
             ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p,

@@ -14,6 +14,9 @@ which returns the fixed ``uint32[2k+3]`` winner buffer
   version on a given device; the CPU tests' path.
 - ``PythonBackend`` — hashlib, one nonce at a time: the zero-dependency
   oracle.
+- ``ScryptCudaBackend``, ``ScryptTorchBackend``, ``ScryptPythonBackend`` —
+  the same three for scrypt (Litecoin), the counterparts of
+  ``ScryptPallasBackend``, ``ScryptXlaBackend`` and ``ScryptPythonBackend``.
 
 A launch whose table overflows (more than k winners — test-easy targets
 only) is bisected: its halves are launched again, on the same backend,
@@ -26,22 +29,32 @@ big-endian read of header bytes 76:80 (wire bytes = pack(">I", nonce_word)).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import struct
+import threading
 import time
 
 import numpy as np
 import torch
 
+from otedama_tpu_torch.kernels import scrypt_cuda as scc
+from otedama_tpu_torch.kernels import scrypt_torch
 from otedama_tpu_torch.kernels import sha256_cuda as sc
 from otedama_tpu_torch.kernels import sha256_torch as st
 from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.utils import pow_host
 from otedama_tpu_torch.utils import sha256_host as sh
 
 log = logging.getLogger("otedama.runtime.search")
 
 _M32 = 0xFFFFFFFF
+
+# lanes per scrypt launch on the card: V takes 128 KiB per lane, so 2^18
+# lanes hold 32 GiB of an 80 GB card. chip_smoke.py times 2^16..2^18
+# (PERF.md section 5): the rate still rises with the lane count there.
+SCRYPT_CUDA_CHUNK = 1 << 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +142,8 @@ def _offset(nonce_word: int, base: int) -> int:
 
 class _BufferBackend:
     """Host side shared by the backends whose launches return the winner
-    buffer: grouped launches, one read-back, host re-check of every
-    winner, and the bisecting overflow rescan."""
+    buffer: windows launched together before one read-back, host re-check
+    of every winner, and the bisecting overflow rescan."""
 
     name = "?"
 
@@ -146,29 +159,29 @@ class _BufferBackend:
         uint32 ``[len(windows), 2k+3]``."""
         raise NotImplementedError
 
+    def _digest(self, jc: JobConstants, nonce_word: int) -> bytes:
+        """The host's proof-of-work digest of one winner."""
+        raise NotImplementedError
+
     def precompile(self, jc: JobConstants | None = None,
                    count: int | None = None) -> float:
         return warmup_backend(self, jc, count)
 
-    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
-        return self.search_group(jc, [(base, count)])[0]
-
-    def search_group(
-        self, jc: JobConstants, batches: list[tuple[int, int]]
+    def _search_windows(
+        self, jc: JobConstants, windows: list[tuple[int, int]]
     ) -> list[SearchResult]:
-        """Run several launches with all of them issued before the one
-        read-back."""
-        bufs = self._launch_all(jc, batches)
+        """One result per window, all launched before the one read-back."""
+        bufs = self._launch_all(jc, windows)
         return [
             self._collect(jc, base, count, buf)
-            for (base, count), buf in zip(batches, bufs)
+            for (base, count), buf in zip(windows, bufs)
         ]
 
     def _verified(self, jc: JobConstants, nonce_words) -> list[Winner]:
         winners: list[Winner] = []
         for w in nonce_words:
             w = int(w)
-            digest = jc.digest_for(w)
+            digest = self._digest(jc, w)
             if not tgt.hash_meets_target(digest, jc.target):
                 # the device decision is exact, so a host-side miss means
                 # the DEVICE produced a wrong winner — corruption, not a
@@ -193,7 +206,7 @@ class _BufferBackend:
 
     def _bisect(self, jc: JobConstants, base: int, count: int) -> list[Winner]:
         """Every winner of an overflowing window: split it in halves and
-        launch them (all halves of one level in one group) until each half
+        launch them (all halves of one level together) until each half
         holds at most k winners, then order the winners by offset."""
         winners: list[Winner] = []
         overflowing = [(base, count)]
@@ -213,7 +226,58 @@ class _BufferBackend:
         return winners
 
 
-class CudaBackend(_BufferBackend):
+class _Sha256dBackend(_BufferBackend):
+    """sha256d: one launch per batch; the engine groups launches."""
+
+    def _digest(self, jc: JobConstants, nonce_word: int) -> bytes:
+        return jc.digest_for(nonce_word)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return self.search_group(jc, [(base, count)])[0]
+
+    def search_group(
+        self, jc: JobConstants, batches: list[tuple[int, int]]
+    ) -> list[SearchResult]:
+        """Run several launches with all of them issued before the one
+        read-back."""
+        return self._search_windows(jc, batches)
+
+
+def _cuda_device(device, who: str) -> torch.device:
+    """The CUDA device a card backend runs on; raises without a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{who} needs a CUDA device, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: torch.cuda.is_available() is False — no "
+                           "CUDA device to run the kernel on")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _launch_rows(device, stream, windows, k: int, launch_one,
+                 lock=contextlib.nullcontext()) -> np.ndarray:
+    """Issue ``launch_one(base, count, out_row)`` for every window on
+    ``stream`` into rows of one device buffer, then one pinned read-back
+    and one event wait (outside ``lock``). Returns uint32 ``[windows,
+    2k+3]``."""
+    words = sc.winner_buffer_words(k)
+    with lock, torch.cuda.device(device), torch.cuda.stream(stream):
+        dev = torch.empty((len(windows), words), dtype=torch.int32,
+                          device=device)
+        for i, (base, count) in enumerate(windows):
+            launch_one(base, count, dev[i])
+        host = torch.empty((len(windows), words), dtype=torch.int32,
+                           pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return host.numpy().view(np.uint32)
+
+
+class CudaBackend(_Sha256dBackend):
     """The card's hot path: the CUDA search kernel with exact on-device
     winner selection. One launch covers a whole batch (up to 2^32 nonces),
     so the engine drives it with 2^31-nonce launches, grouped."""
@@ -223,13 +287,7 @@ class CudaBackend(_BufferBackend):
 
     def __init__(self, device="cuda", winner_depth: int | None = None):
         super().__init__(device, winner_depth)
-        if self.device.type != "cuda":
-            raise ValueError(f"CudaBackend needs a CUDA device, got {self.device}")
-        if not torch.cuda.is_available():
-            raise RuntimeError("CudaBackend: torch.cuda.is_available() is "
-                               "False — no CUDA device to run the kernel on")
-        if self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = _cuda_device(self.device, "CudaBackend")
         # the backend's own stream: the engine launches from executor
         # threads, so device and stream are explicit, never thread defaults
         self.stream = torch.cuda.Stream(device=self.device)
@@ -243,24 +301,15 @@ class CudaBackend(_BufferBackend):
         return time.monotonic() - t0 + warmup_backend(self, jc, count)
 
     def _launch_all(self, jc, windows):
-        words = sc.winner_buffer_words(self.k)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            dev = torch.empty((len(windows), words), dtype=torch.int32,
-                              device=self.device)
-            for i, (base, count) in enumerate(windows):
-                sc.sha256d_search(jc.job_words(base, count), batch=count,
-                                  k=self.k, device=self.device,
-                                  stream=self.stream, out=dev[i])
-            host = torch.empty((len(windows), words), dtype=torch.int32,
-                               pin_memory=True)
-            host.copy_(dev, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        done.synchronize()
-        return host.numpy().view(np.uint32)
+        def launch(base, count, out):
+            sc.sha256d_search(jc.job_words(base, count), batch=count,
+                              k=self.k, device=self.device,
+                              stream=self.stream, out=out)
+
+        return _launch_rows(self.device, self.stream, windows, self.k, launch)
 
 
-class TorchBackend(_BufferBackend):
+class TorchBackend(_Sha256dBackend):
     """The plain PyTorch version of the search on a given device: the
     counterpart of ``XlaBackend``. ``chunk`` bounds the lanes hashed at
     once (memory), not the batch."""
@@ -282,6 +331,19 @@ class TorchBackend(_BufferBackend):
         return torch.stack(bufs).cpu().numpy().view(np.uint32)
 
 
+def _scalar_search(jc: JobConstants, base: int, count: int,
+                   digest_fn) -> SearchResult:
+    winners: list[Winner] = []
+    best = _M32
+    for i in range(count):
+        w = (base + i) & _M32
+        digest = digest_fn(w)
+        best = min(best, int.from_bytes(digest[28:32], "little"))
+        if tgt.hash_meets_target(digest, jc.target):
+            winners.append(Winner(w, digest))
+    return SearchResult(winners, count, best)
+
+
 class PythonBackend:
     """Pure-python hashlib search. Slow; the zero-dependency oracle."""
 
@@ -292,28 +354,164 @@ class PythonBackend:
         return warmup_backend(self, jc, 1)
 
     def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
-        winners: list[Winner] = []
-        best = _M32
-        for i in range(count):
-            w = (base + i) & _M32
-            digest = jc.digest_for(w)
-            best = min(best, int.from_bytes(digest[28:32], "little"))
-            if tgt.hash_meets_target(digest, jc.target):
-                winners.append(Winner(w, digest))
-        return SearchResult(winners, count, best)
+        return _scalar_search(jc, base, count, jc.digest_for)
+
+
+# -- scrypt (N=1024, r=1, p=1) -------------------------------------------------
+
+class _ScryptBackend(_BufferBackend):
+    """scrypt search over the same ``JobConstants`` as sha256d, reading only
+    ``header76``, ``target`` and ``limbs`` (the nonce sits inside the PBKDF2
+    password, so there is no midstate: the whole pipeline runs per lane).
+    A search runs its count in launches of at most ``chunk`` lanes, all
+    issued before one read-back."""
+
+    algorithm = "scrypt"
+
+    def __init__(self, device, winner_depth: int | None, chunk: int):
+        super().__init__(device, winner_depth)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.chunk = int(chunk)
+        # engine batch cap: one search call must stay short, so that a
+        # clean job does not strand seconds of stale work
+        self.max_batch = 4 * self.chunk
+
+    def _digest(self, jc: JobConstants, nonce_word: int) -> bytes:
+        return pow_host.scrypt_1024_1_1(jc.header_for(nonce_word))
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        windows = [((base + off) & _M32, min(self.chunk, count - off))
+                   for off in range(0, count, self.chunk)]
+        results = self._search_windows(jc, windows) if windows else []
+        return SearchResult([w for r in results for w in r.winners], count,
+                            min((r.best_hash_hi for r in results), default=_M32))
+
+
+class ScryptCudaBackend(_ScryptBackend):
+    """scrypt on the card, the counterpart of ``ScryptPallasBackend``.
+
+    ``tier``: ``romix`` (the default; the whole ROMix in one kernel, B5),
+    ``romix-half`` (B5 keeping half of V and recomputing odd rows) or
+    ``blockmix`` (the reference's ``pallas`` tier: 2,048 BlockMix
+    launches, B3 and B4, around a ``torch.gather`` of V's rows). Every tier
+    runs PBKDF2 and the exact compare in the search kernels' prologue and
+    epilogue.
+
+    V (128 KiB per lane, 64 KiB for ``romix-half``) is one scratch per
+    backend, sized for ``chunk`` lanes: ``2^18`` lanes hold 32 GiB. The
+    engine keeps several ``search`` calls in flight on executor threads;
+    they share the scratch safely because every launch goes to the
+    backend's one stream, which runs them in order, and a lock keeps one
+    call's launches together while it enqueues them (the wait for the
+    result happens outside the lock)."""
+
+    def __init__(self, device="cuda", winner_depth: int | None = None,
+                 chunk: int = SCRYPT_CUDA_CHUNK, tier: str = "romix"):
+        if tier not in scc.TIERS:
+            raise ValueError(f"unknown scrypt tier {tier!r} (known: "
+                             f"{scc.TIERS})")
+        super().__init__(device, winner_depth, chunk)
+        self.device = _cuda_device(self.device, "ScryptCudaBackend")
+        self.tier = tier
+        self.name = "scrypt-cuda" if tier == "romix" else f"scrypt-cuda-{tier}"
+        self.stream = torch.cuda.Stream(device=self.device)
+        self._lock = threading.Lock()
+        self._scratch: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def _scratch_for_chunk(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self._scratch is None:
+            v_words = scc.scratch_words(self.chunk)
+            if self.tier == "romix-half":
+                v_words //= 2
+            with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+                self._scratch = (
+                    torch.empty(scc.ROW_WORDS * self.chunk, dtype=torch.int32,
+                                device=self.device),
+                    torch.empty(v_words, dtype=torch.int32, device=self.device),
+                )
+        return self._scratch
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        """Build and load the kernel library and allocate V, then one warmup
+        search of ``count`` nonces."""
+        t0 = time.monotonic()
+        scc.load_library()
+        with self._lock:
+            self._scratch_for_chunk()
+        return time.monotonic() - t0 + warmup_backend(self, jc, count)
+
+    def _launch_all(self, jc, windows):
+        h19 = scrypt_torch.header_words19(jc.header76)
+
+        def launch(base, count, out):
+            if count > self.chunk:
+                raise ValueError(f"window of {count} lanes > chunk {self.chunk}")
+            scc.scrypt_search(h19, base, jc.limbs, count - 1, n=count,
+                              k=self.k, device=self.device, tier=self.tier,
+                              stream=self.stream, out=out,
+                              scratch=self._scratch_for_chunk())
+
+        return _launch_rows(self.device, self.stream, windows, self.k, launch,
+                            lock=self._lock)
+
+
+class ScryptTorchBackend(_ScryptBackend):
+    """The plain PyTorch version of the scrypt search on a given device:
+    the counterpart of ``ScryptXlaBackend``, and the tests' CPU path."""
+
+    name = "scrypt-torch"
+
+    def __init__(self, device="cpu", winner_depth: int | None = None,
+                 chunk: int = 1 << 10):
+        super().__init__(device, winner_depth, chunk)
+
+    def _launch_all(self, jc, windows):
+        h19 = scrypt_torch.header_words19(jc.header76)
+        bufs = [
+            scrypt_torch.scrypt_search_buffer(h19, base, jc.limbs, count - 1,
+                                              n=count, k=self.k,
+                                              device=self.device)
+            for base, count in windows
+        ]
+        return torch.stack(bufs).cpu().numpy().view(np.uint32)
+
+
+class ScryptPythonBackend:
+    """Scalar hashlib.scrypt search: the zero-dependency oracle."""
+
+    name = "scrypt-python"
+    algorithm = "scrypt"
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        return warmup_backend(self, jc, 1)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return _scalar_search(
+            jc, base, count,
+            lambda w: pow_host.scrypt_1024_1_1(jc.header_for(w)))
+
+
+_BACKENDS = {
+    "sha256d": {"cuda": CudaBackend, "torch": TorchBackend,
+                "python": PythonBackend},
+    "scrypt": {"cuda": ScryptCudaBackend, "torch": ScryptTorchBackend,
+               "python": ScryptPythonBackend},
+}
+_BACKENDS["sha256"] = _BACKENDS["sha256d"]
 
 
 def make_backend(kind: str, algorithm: str = "sha256d", **kwargs):
-    """``kind`` is ``cuda``, ``torch`` or ``python``; kwargs go to the
-    backend (``device``, ``winner_depth``, ``chunk``)."""
-    if algorithm not in ("sha256d", "sha256"):
+    """``kind`` is ``cuda``, ``torch`` or ``python``; ``algorithm`` a
+    canonical name (``sha256d``, ``sha256``, ``scrypt``); kwargs go to the
+    backend (``device``, ``winner_depth``, ``chunk``, and ``tier`` for
+    scrypt on the card)."""
+    cls = _BACKENDS.get(algorithm, {}).get(kind)
+    if cls is None:
         raise ValueError(f"no backend {kind!r} for algorithm {algorithm!r}")
-    if kind == "cuda":
-        return CudaBackend(**kwargs)
-    if kind == "torch":
-        return TorchBackend(**kwargs)
     if kind == "python":
         kwargs.pop("device", None)
         kwargs.pop("winner_depth", None)
-        return PythonBackend(**kwargs)
-    raise ValueError(f"no backend {kind!r} for algorithm {algorithm!r}")
+    return cls(**kwargs)

@@ -112,8 +112,8 @@ def test_explicit_cpu_backends_build():
     assert isinstance(mgr.backend_for("sha256d"), search.TorchBackend)
     assert isinstance(mgr.backend_for("sha256", kind="python"),
                       search.PythonBackend)
-    with pytest.raises(KeyError):  # scrypt is not in this slice of the port
-        mgr.backend_for("scrypt")
+    with pytest.raises(KeyError):  # x11 is not ported yet
+        mgr.backend_for("x11")
     warm = mgr.prepare_backend("sha256d", warm_count=lambda b: 64)
     assert isinstance(warm, search.TorchBackend)
 

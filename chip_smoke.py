@@ -6,7 +6,8 @@ source, started together), drives the solo sha256d and scrypt main paths
 through the entry points a user calls, and checks every phase; any failure
 exits non-zero. Phases:
 
-1. card: name, power limit, clocks, versions; build the kernels;
+1. card: name, power limit, clocks, versions; build the kernels; the
+   opcode mix of the hot kernels' SASS (``cuobjdump -sass``);
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
    (few winners, target at a lane's hash and +-1, a ragged count, a
@@ -26,7 +27,8 @@ exits non-zero. Phases:
 8. scrypt ROMix kernel B5 against the plain version, full V and half_v,
    at the main path's shape;
 9. scrypt search buffers against the plain version (n <= k: every word;
-   n > k: count and min; a clamp at ``last`` mid-chunk; a base near 2^32);
+   n > k: count and min; a clamp at ``last`` mid-chunk; a base near 2^32;
+   a scratch off the card refused before any launch);
 10. scrypt main path: ``Application`` in solo mode with
    ``mining.algorithm = "scrypt"`` on the card for a fixed window against
    a mock chain at nbits 0x1f00ffff (about one share per 2^16 hashes);
@@ -51,6 +53,7 @@ import hashlib
 import json
 import logging
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -66,6 +69,12 @@ GENESIS_HASH = "000000000019d6689c085ae165831e934ff763ae46a2a6c172b3f1b60a8ce26f
 BLOCKS_NEEDED = 3
 MAIN_PATH_BOUND_S = 180.0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+# 32-bit integer instructions an SM can issue per clock, thread by thread:
+# four schedulers, one 32-thread warp instruction each. Integer work goes
+# to the ALU pipe (IADD3, LOP3, SHF: 64 threads a clock) and to the FMA
+# pipe (IMAD and its IADD/MOV/SHL forms: 64 more), so no mix of integer
+# instructions issues faster. The bounds below take this ceiling.
+INT32_LANES_PER_SM = 128
 SCRYPT_NBITS = 0x1F00FFFF     # about one scrypt share per 2^16 hashes
 SCRYPT_WINDOW_S = 20.0        # the scrypt main path's fixed window
 
@@ -111,6 +120,45 @@ def median_ms(fn, stream, reps: int, rounds: int = 3):
             stop.synchronize()
             round_ms.append(start.elapsed_time(stop) / reps)
     return sorted(round_ms)[rounds // 2], round_ms
+
+
+def sass_mix(library: str, kernel: str) -> dict[str, dict[str, int]]:
+    """Opcode counts of the compiled SASS of each function of ``library``
+    whose name holds ``kernel`` (``cuobjdump -sass``; static counts, which
+    the unrolled hash rounds dominate)."""
+    from otedama_tpu_torch.kernels.cuda_build import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    mixes, counts = {}, None
+    for line in out.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            counts = mixes.setdefault(head.group(1), {}) \
+                if kernel in head.group(1) else None
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if counts is not None and op:
+            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    check(mixes, f"no function {kernel!r} in {library}")
+    return mixes
+
+
+def print_sass_mix(library: str, kernel: str) -> None:
+    """One line per function: its integer share on the FMA pipe (IMAD)
+    and the ALU pipe (IADD3, LOP3, SHF), and its most frequent opcodes."""
+    for fn, counts in sass_mix(library, kernel).items():
+        total = sum(counts.values())
+        imad = counts.get("IMAD", 0)
+        alu = sum(counts.get(o, 0) for o in ("IADD3", "LOP3", "SHF"))
+        top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+        print(f"   SASS {fn}: {total} instructions; IMAD {imad} "
+              f"({imad / total:.1%}, FMA pipe), IADD3+LOP3+SHF {alu} "
+              f"({alu / total:.1%}, ALU pipe); "
+              + ", ".join(f"{o} {c}" for o, c in top), flush=True)
 
 
 class ErrorCount(logging.Handler):
@@ -320,6 +368,20 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     check(compare("4096 lanes, n > k", 77, 1 << 26, 4095, 4096) > k,
           "overflow case did not overflow")
     compare("last mid-chunk, base near 2^32", full - 1500, 1 << 24, 2999, 4096)
+    lanes = 64      # a scratch off the card is refused before any launch
+    launches = scc.search_launches.value
+    try:
+        scc.scrypt_search(h19, 0, [full] * 8, lanes - 1, n=lanes,
+                          k=k, device=dev, scratch=(
+                              torch.empty(32 * lanes, dtype=torch.int32),
+                              torch.empty(scc.scratch_words(lanes),
+                                          dtype=torch.int32, device=dev)))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and scc.search_launches.value == launches,
+          "an x scratch on the CPU was not refused")
+    print("   an x scratch on the CPU is refused with ValueError", flush=True)
 
     # -- 10. main path --------------------------------------------------------------
     phase("10 scrypt main path: solo Application on the card, nbits 0x1f00ffff")
@@ -438,14 +500,19 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
                                       out=out, scratch=(xs, scratch)),
             stream, 2)
         half = tier == "romix-half"
-        bound = scc.ops_per_hash(half) * chunk / int_ops_per_s * 1e3
+        ops_ms = scc.ops_per_hash(half) * chunk / int_ops_per_s * 1e3
+        bytes_ms = scc.v_bytes_per_hash(half) * chunk / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
         print(f"   search, {tier}: {tier_ms[tier]:.2f} ms per chunk = "
               f"{chunk / tier_ms[tier] * 1e3:.0f} H/s (rounds "
               + ", ".join(f"{t:.2f}" for t in rounds)
-              + f"); bound {bound:.2f} ms = {chunk / bound * 1e3:.0f} H/s "
-              f"({scc.ops_per_hash(half):.0f} int32 ops/hash"
+              + f"); bound {bound:.2f} ms = {chunk / bound * 1e3:.0f} H/s, "
+              f"by {'operations' if ops_ms >= bytes_ms else 'bytes'} "
+              f"(operations {ops_ms:.2f} ms: {scc.ops_per_hash(half):.0f} "
+              f"int32 ops/hash"
               + (", half of the mix steps recomputing a row" if half else "")
-              + ")", flush=True)
+              + f"; bytes {bytes_ms:.2f} ms: {scc.v_bytes_per_hash(half)} B "
+              f"of V/hash)", flush=True)
     for lanes in (1 << 16, 1 << 17, 1 << 18):   # the chunk sweep
         t, _ = median_ms(
             lambda: scc.scrypt_search(h19, 0, lb, lanes - 1, n=lanes, k=k,
@@ -457,10 +524,14 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     torch.cuda.empty_cache()
 
     row = scc.ROW_WORDS * 4
-    work = {  # (int32 ops, bytes in + out) of one launch at [32, chunk]
+    # (int32 ops, bytes) of one launch at [32, chunk]: X in and out, and
+    # for B5 V's rows written and read in device memory, as V (32 GiB at
+    # 2^18 lanes) cannot stay on the chip
+    work = {
         "B3": (scc.BLOCKMIX_OPS * chunk, 2 * row * chunk),
         "B4": ((scc.ROW_WORDS + scc.BLOCKMIX_OPS) * chunk, 3 * row * chunk),
-        "B5": (scc.romix_ops() * chunk, 2 * row * chunk),
+        "B5": (scc.romix_ops() * chunk,
+               (2 * row + scc.v_bytes_per_hash()) * chunk),
     }
     launches = {"B3": bm_launches[0], "B4": bm_launches[1], "B5": romix_main}
     meta = {
@@ -583,6 +654,8 @@ def main() -> int:
         for line in mod.build_info.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"   ptxas: {line.strip()}", flush=True)
+    print_sass_mix(sc.build_info["library"], "search_kernel")
+    print_sass_mix(scc.build_info["library"], "romix_kernel")
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -748,14 +821,14 @@ def main() -> int:
     print(f"   {rounds} rounds of {reps} launches, ms per launch: "
           + ", ".join(f"{t:.2f}" for t in round_ms), flush=True)
     ops = sc.ops_per_nonce()
-    int_ops_per_s = props.multi_processor_count * 64 * clock_mhz * 1e6
+    int_ops_per_s = props.multi_processor_count * INT32_LANES_PER_SM * clock_mhz * 1e6
     ops_ms = ops * MAIN_BATCH / int_ops_per_s * 1e3
     bytes_ms = (sc.JOB_WORDS + sc.winner_buffer_words(k)) * 4 / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     print(f"   kernel {kernel_ms:.2f} ms = {MAIN_BATCH / kernel_ms / 1e6:.3f} GH/s;"
           f" bound {bound_ms:.2f} ms = {MAIN_BATCH / bound_ms / 1e6:.3f} GH/s "
-          f"({ops} int32 ops/nonce over {props.multi_processor_count} SMs x 64 "
-          f"lanes x {clock_mhz:.0f} MHz); plain version "
+          f"({ops} int32 ops/nonce over {props.multi_processor_count} SMs x "
+          f"{INT32_LANES_PER_SM} lanes x {clock_mhz:.0f} MHz); plain version "
           f"{plain_main_s * 1e3:.0f} ms for a 2^31-lane launch; "
           f"{card}", flush=True)
 
@@ -773,8 +846,7 @@ def main() -> int:
         "library_ms": None,
         "path": "solo sha256d Application (phase 4)",
     }]
-    kernels += scrypt_phases(dev, card, props.multi_processor_count * 64
-                             * clock_mhz * 1e6)
+    kernels += scrypt_phases(dev, card, int_ops_per_s)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,13 @@
 // because 21 SHA-256 compressions per lane in eager torch would cost more
 // than ROMix itself.
 //
-// What bounds it: 32-bit integer operations. One Salsa20/8 is 4 double
-// rounds x 32 (add, rotate, xor) + 16 adds; one BlockMix two of them plus
-// 32 XORs; ROMix 2,048 BlockMixes plus 1,024 x 32 XORs: ~1.74 M int32 ops
-// per hash, against 256 KiB of V written once and read once. At 132 SMs x
-// 64 int32 lanes a clock that is more time than HBM needs for the bytes.
+// What bounds it. One Salsa20/8 is 4 double rounds x 32 (add, rotate, xor)
+// + 16 adds; one BlockMix two of them plus 32 XORs; ROMix 2,048 BlockMixes
+// plus 1,024 x 32 XORs: ~1.74 M int32 ops per hash, against 256 KiB of V
+// written once and read once. At 132 SMs x 128 integer instructions a
+// clock (ALU and FMA pipes together) the ops take less time than HBM
+// needs for the bytes; `half_v` writes half the rows and trades them for
+// ~25% more ops.
 // The design keeps the operations on registers and the bytes coalesced:
 //   - one thread per lane, X's 32 words in registers for the whole ROMix,
 //     Salsa fully unrolled on 16 registers, rotates as __funnelshift_l;

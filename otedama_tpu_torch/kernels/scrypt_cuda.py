@@ -224,6 +224,8 @@ def scrypt_search(header19, base: int, limbs, last: int, *, n: int,
                                        device=device)
     if device.type != "cuda":
         raise ValueError(f"scrypt_search runs on cuda or cpu, not {device}")
+    if device.index is None:    # "cuda" names the current card
+        device = torch.device("cuda", torch.cuda.current_device())
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     lanes = max(0, min(int(n), int(last) + 1))
@@ -244,8 +246,10 @@ def scrypt_search(header19, base: int, limbs, last: int, *, n: int,
                        torch.empty(scratch_words(lanes), dtype=torch.int32,
                                    device=device))
         xs, vs = scratch
-        if xs.numel() < ROW_WORDS * lanes or xs.dtype != torch.int32:
-            raise ValueError(f"x scratch needs {ROW_WORDS * lanes} int32 words")
+        if (xs.device != device or xs.dtype != torch.int32
+                or xs.numel() < ROW_WORDS * lanes or not xs.is_contiguous()):
+            raise ValueError(f"x scratch must be a contiguous int32 tensor of "
+                             f"at least {ROW_WORDS * lanes} words on {device}")
         x = xs[:ROW_WORDS * lanes].view(ROW_WORDS, lanes)
         lib = load_library()
         _check(lib, lib.otedama_scrypt_prologue(
@@ -288,3 +292,13 @@ def ops_per_hash(half_v: bool = False, odd_share: float = 0.5) -> float:
     as IADD3s: ~14 ops; a schedule word ~10). The op count behind the
     search's ``bound_ms``."""
     return romix_ops(half_v, odd_share) + PBKDF2_COMPRESSIONS * SHA256_COMPRESS_OPS
+
+
+def v_bytes_per_hash(half_v: bool = False) -> int:
+    """Bytes of V that one lane's ROMix moves through device memory: the
+    fill pass writes every row (every even row with ``half_v``) and each
+    of the 1,024 mix steps reads one. V (128 KiB a lane) cannot stay on
+    the chip at a useful lane count, so these bytes are part of the
+    bound."""
+    rows_written = SCRYPT_N // 2 if half_v else SCRYPT_N
+    return (rows_written + SCRYPT_N) * ROW_WORDS * 4

@@ -49,7 +49,8 @@ from otedama_tpu_torch.utils.sha256_host import SHA256_IV
 M32 = 0xFFFFFFFF
 SCRYPT_N = 1024
 
-# calls of the plain entry points (blockmix, romix, scrypt_search_buffer):
+# calls of the plain entry points (blockmix, romix, scrypt_search_buffer,
+# scrypt_search_buffers):
 # chip_smoke shows that the card's main path makes none
 calls = LaunchCounter()
 
@@ -302,19 +303,38 @@ def scrypt_search_buffer(header19, base: int, limbs, last: int, *, n: int,
     lane offsets past ``last`` taking part in neither the winners nor the
     min top limb. Returns it as an int32 tensor on ``device``."""
     calls.add()
-    device = torch.device(device)
     lanes = max(0, min(n, int(last) + 1))
-    offs = torch.arange(lanes, dtype=torch.int64, device=device)
-    nonces = (offs + int(base)) & M32
+    return _search_buffers(header19, [(base, lanes)], limbs, k, device)[0]
+
+
+def scrypt_search_buffers(header19, windows, limbs, *, k: int, device="cpu"):
+    """``scrypt_search_buffer`` of several ``(base, lanes)`` windows of one
+    header, all through one ROMix call (which costs the same for few lanes
+    as for many); returns int32 ``[len(windows), 2k+3]`` on ``device``."""
+    calls.add()
+    return _search_buffers(header19, windows, limbs, k, device)
+
+
+def _search_buffers(header19, windows, limbs, k: int, device):
+    device = torch.device(device)
     limbs = [int(x) for x in np.asarray(limbs, dtype=np.uint32)]
-    if lanes:
-        h = st.digest_words_to_compare_order(scrypt_1024_1_1(header19, nonces))
-        buf = st.compact_winners(st.le256(h, limbs), h[0], nonces, k)
-    else:
-        buf = torch.tensor([0] * (2 * k) + [0, 0, M32], dtype=torch.int64)
-        buf[k:2 * k] = M32
-    return torch.from_numpy(
-        buf.cpu().numpy().astype(np.uint32).view(np.int32)).to(device)
+    nonces = [(torch.arange(lanes, dtype=torch.int64, device=device)
+               + int(base)) & M32 for base, lanes in windows]
+    if sum(len(nw) for nw in nonces):
+        h = st.digest_words_to_compare_order(
+            scrypt_1024_1_1(header19, torch.cat(nonces)))
+    bufs, off = [], 0
+    for nw in nonces:
+        if len(nw):
+            hw = [w[off:off + len(nw)] for w in h]
+            bufs.append(st.compact_winners(st.le256(hw, limbs), hw[0], nw, k))
+        else:
+            empty = torch.tensor([0] * (2 * k) + [0, 0, M32], dtype=torch.int64)
+            empty[k:2 * k] = M32
+            bufs.append(empty)
+        off += len(nw)
+    out = torch.stack([b.cpu() for b in bufs]).numpy().astype(np.uint32)
+    return torch.from_numpy(out.view(np.int32)).to(device)
 
 
 def header_words19(header76: bytes) -> tuple[int, ...]:

@@ -468,14 +468,23 @@ class ScryptTorchBackend(_ScryptBackend):
         super().__init__(device, winner_depth, chunk)
 
     def _launch_all(self, jc, windows):
+        """Windows share ROMix calls of at most ``chunk`` lanes: a call
+        costs about the same for few lanes as for many, and the bisect's
+        halves of one window then take one call per level."""
         h19 = scrypt_torch.header_words19(jc.header76)
+        groups, lanes = [[]], 0
+        for base, count in windows:
+            if lanes + count > self.chunk and groups[-1]:
+                groups.append([])
+                lanes = 0
+            groups[-1].append((base, count))
+            lanes += count
         bufs = [
-            scrypt_torch.scrypt_search_buffer(h19, base, jc.limbs, count - 1,
-                                              n=count, k=self.k,
-                                              device=self.device)
-            for base, count in windows
+            scrypt_torch.scrypt_search_buffers(h19, group, jc.limbs, k=self.k,
+                                               device=self.device)
+            for group in groups if group
         ]
-        return torch.stack(bufs).cpu().numpy().view(np.uint32)
+        return torch.cat(bufs).cpu().numpy().view(np.uint32)
 
 
 class ScryptPythonBackend:

@@ -13,7 +13,7 @@ every comparison is exact (integer arithmetic, tolerance 0):
   hashlib oracle (a mid-chunk clamp, a winner-table overflow);
 - the port's engine against the reference engine, the solo application
   and the CLI on scrypt, the engine's batch clamp, and the card paths,
-  which raise here.
+  which raise here; the counts behind the kernels' bounds.
 
 The jnp pipeline is compiled twice (``n=32`` with ``k=16`` and ``k=2``).
 """
@@ -173,6 +173,40 @@ def test_search_buffer_matches_scrypt_search_winners(clamp_case):
     # an empty window: no winner, no min
     empty = _u32(st.scrypt_search_buffer(h19, base, jc.limbs, M32, n=0, k=4))
     assert empty.tolist() == [0] * 4 + [M32] * 4 + [0, 0, M32]
+
+
+def test_search_buffers_of_several_windows_match_hashlib():
+    """Windows of one header share one ROMix call; each buffer is what
+    hashlib's values give: across the 2^32 wrap, past k, and empty."""
+    h76, k = _header76(11), 2
+    windows = [(5, 6), (M32 - 2, 5), (77, 0)]
+    vals = [_values(h76, base, count) for base, count in windows]
+    target = sorted(vals[0].values())[2]     # the first window overflows k
+    jc = search.JobConstants.from_header_prefix(h76, target)
+    calls = st.calls.value
+    got = _u32(st.scrypt_search_buffers(st.header_words19(h76), windows,
+                                        jc.limbs, k=k))
+    assert st.calls.value == calls + 1 and got.shape == (3, 2 * k + 3)
+    assert got[0][2 * k] > k
+    for (base, _), v, buf in zip(windows, vals, got):
+        wins = [n for n in sorted(v, key=lambda n: (n - base) & M32)
+                if v[n] <= target][:k]
+        assert buf[2 * k] == sum(x <= target for x in v.values())
+        assert buf[2 * k + 2] == min(v.values(), default=M32 << 224) >> 224
+        assert buf[:k].tolist() == wins + [0] * (k - len(wins))
+        assert buf[k:2 * k].tolist() == [v[n] >> 224 for n in wins] + \
+            [M32] * (k - len(wins))
+
+
+def test_bound_counts_of_the_scrypt_kernels():
+    # V's traffic: the fill pass writes every row (the even ones with
+    # half_v), and each of the 1,024 mix steps reads one
+    assert scc.v_bytes_per_hash() == 256 * 1024
+    assert scc.v_bytes_per_hash(half_v=True) == 192 * 1024
+    assert scc.romix_ops(half_v=True) - scc.romix_ops() == \
+        512 * scc.BLOCKMIX_OPS
+    assert scc.ops_per_hash() == scc.romix_ops() + \
+        scc.PBKDF2_COMPRESSIONS * scc.SHA256_COMPRESS_OPS
 
 
 def test_torch_backend_matches_xla_backend_and_oracle(clamp_case):

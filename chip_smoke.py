@@ -3,8 +3,8 @@
 
 Builds the port's kernels from the sources in this checkout (one nvcc per
 source, started together), drives the solo sha256d and scrypt main paths
-through the entry points a user calls, and checks every phase; any failure
-exits non-zero. Phases:
+and the pool ledger's share validation through the entry points a user
+calls, and checks every phase; any failure exits non-zero. Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    opcode mix of the hot kernels' SASS (``cuobjdump -sass``);
@@ -38,7 +38,33 @@ exits non-zero. Phases:
    ``romix`` tier for one chunk, and three searches in flight on one
    backend (sharing its V) give what they give one by one;
 12. scrypt times per chunk (CUDA events, median of rounds) for the
-   ``romix``, ``romix-half`` and ``blockmix`` tiers beside their bounds.
+   ``romix``, ``romix-half`` and ``blockmix`` tiers beside their bounds;
+13. share validation known answer: the genesis header through the verify
+   kernel B2 passes at bits 0x1d00ffff and at its digest and fails one
+   below; a boundary batch (targets v, v-1, v+1) against hashlib;
+14. B2 against the plain version on the card: 1,024 and 2^20 lanes with
+   one Byzantine share in three (k = 512 holds every failure at 1,024
+   lanes; at 2^20 the k = 16 table overflows and the count and min are
+   compared), 2^20 lanes with 9 Byzantine shares, a count short of the
+   rows, an empty batch;
+15. the scrypt verify path (verify prologue, ROMix B5, verify epilogue)
+   against the plain version and hashlib at the ledger's shape (1,024
+   lanes, k = 16, 4 planted failures across blocks) and at 256 lanes
+   with boundary targets;
+16. main path: ``PoolManager.on_share_batch`` with a ``ValidationBackend``
+   on the card (min_batch 128, tripwire 5%): 64 flushes of 1,024 sha256d
+   shares from 4,096 workers and 4 of 1,024 scrypt shares, from two
+   producers at once, about one Byzantine share in 256, and one flush of
+   64 under the crossover; every outcome equals hashlib's verdict, the
+   books hold exactly the honest shares, the rails stay quiet, B2 ran 64
+   times and no plain version ran. Then, outside the counted run, the
+   sha256d flushes again without the second producer (per-flush rates,
+   median and spread, beside those of the shared run) and an overflowed
+   batch settled on the card;
+17. B2 ms per launch at 128, 1,024, 4,096 and 2^20 lanes, and the scrypt
+   verify path at 1,024 and 4,096 lanes, beside their bounds; where
+   ``verify_batch`` on the card overtakes host validation, by batch size
+   (the crossover that ``VALIDATE_MIN_BATCH`` sets).
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -570,6 +596,470 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     return records
 
 
+def limbs_of_digests(digests: bytes):
+    """Compare-order limbs (most-significant-first) of concatenated 32-byte
+    digests read as little-endian integers: ``uint32[N, 8]``."""
+    import numpy as np
+
+    return np.frombuffer(digests, dtype="<u4").reshape(-1, 8)[:, ::-1].copy()
+
+
+def limbs_step(limbs, delta: int):
+    """``limbs`` (uint32 ``[N, 8]``, most-significant-first) plus ``delta``
+    (+1 or -1) per row, with carry; rows must not wrap 2^256."""
+    import numpy as np
+
+    out = limbs.astype(np.int64)
+    carry = np.full(len(out), delta, dtype=np.int64)
+    for j in range(7, -1, -1):
+        out[:, j] += carry
+        carry = np.where(out[:, j] < 0, -1, np.where(out[:, j] > 0xFFFFFFFF, 1, 0))
+        out[:, j] &= 0xFFFFFFFF
+    return out.astype(np.uint32)
+
+
+def sha256d_values(headers) -> bytes:
+    """hashlib sha256d of every row of ``headers`` (uint8 ``[N, 80]``),
+    concatenated."""
+    return b"".join(hashlib.sha256(hashlib.sha256(h.tobytes()).digest()).digest()
+                    for h in headers)
+
+
+def scrypt_values(headers) -> bytes:
+    """hashlib scrypt of every row of ``headers`` (uint8 ``[N, 80]``) on 8
+    threads (hashlib.scrypt releases the interpreter lock)."""
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return b"".join(pool.map(
+            lambda h: hashlib.scrypt(h, salt=h, n=1024, r=1, p=1, dklen=32),
+            [h.tobytes() for h in headers]))
+
+
+def validation_phases(dev, card: str, int_ops_per_s: float):
+    """Phases 13-17 (share validation at the pool ledger). Returns B2's
+    record, the ROMix launches of the ledger's scrypt flushes, and the
+    scrypt verify path's max_abs_err against its plain version."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.db import connect_database
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import scrypt_torch as sct
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.pool.manager import PoolManager
+    from otedama_tpu_torch.runtime.validate import ShareCheck, ValidationBackend
+    from otedama_tpu_torch.stratum.server import AcceptedShare
+
+    rng = np.random.default_rng(SEED + 2)
+    full = 0xFFFFFFFF
+    max_err = {"B2": 0, "scrypt": 0}
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+
+    def host(t):
+        torch.cuda.synchronize(dev)
+        return t.cpu().numpy().view(np.uint32)
+
+    def failures(buf, k):
+        """(offsets, limbs, count, min) of a read-back failure buffer"""
+        n = int(buf[2 * k])
+        m = min(n, k)
+        return buf[:m].tolist(), buf[k:k + m].tolist(), n, int(buf[2 * k + 2])
+
+    def versus_plain(name, words, limbs, count, k, scrypt=False):
+        """kernel vs plain version on the card, on the same inputs: every
+        word when n <= k, else the count and the min"""
+        w, t = on_card(words), on_card(limbs)
+        kernel, plain = ((scc.scrypt_verify, sct.scrypt_verify_step) if scrypt
+                         else (sc.sha256d_verify, st.sha256d_verify_step))
+        a = host(kernel(w, t, count, k=k))
+        b = host(plain(w, t, count - 1, k=k))
+        n = int(b[2 * k])
+        sel = slice(None) if n <= k else np.r_[2 * k, 2 * k + 2]
+        diff = np.abs(a[sel].astype(np.int64) - b[sel].astype(np.int64))
+        check(not diff.any(), f"{name}: kernel {a.tolist()[:40]} != plain "
+              f"{b.tolist()[:40]}")
+        max_err["scrypt" if scrypt else "B2"] = max(
+            max_err["scrypt" if scrypt else "B2"], int(diff.max()))
+        print(f"   {name}: {count} of {len(words)} rows, k={k}, n={n}"
+              f"{' (overflow: count and min)' if n > k else ''}, "
+              f"min_h0={b[2 * k + 2]:#010x} equal", flush=True)
+        return a
+
+    def boundary(limbs, pattern):
+        """targets from digest limbs: pattern[i] in (0, -1, +1) per row"""
+        out = limbs.copy()
+        for delta in (-1, 1):
+            rows = pattern == delta
+            out[rows] = limbs_step(limbs[rows], delta)
+        return out
+
+    # -- 13. known answer ------------------------------------------------------
+    phase("13 B2 known answer: genesis block, boundary targets vs hashlib")
+    merkle = bytes.fromhex(
+        "4a5e1e4baab89f3a32518a88c31bc87f618f76673e2cc77ab2127b7afdeda33b")[::-1]
+    genesis = (struct.pack("<I", 1) + bytes(32) + merkle
+               + struct.pack("<III", 1231006505, 0x1D00FFFF, 2083236893))
+    gv = int.from_bytes(hashlib.sha256(hashlib.sha256(genesis).digest()).digest(),
+                        "little")
+    check(gv.to_bytes(32, "little")[::-1].hex() == GENESIS_HASH, "genesis digest")
+    words = st.headers_to_words([genesis] * 3)
+    limbs = np.stack([tgt.target_to_limbs(t) for t in
+                      (tgt.bits_to_target(0x1D00FFFF), gv, gv - 1)])
+    offs, fl, n, mn = failures(host(sc.sha256d_verify(on_card(words),
+                                                      on_card(limbs), 3)), 16)
+    check((offs, fl, n, mn) == ([2], [gv >> 224], 1, gv >> 224),
+          f"genesis: failures {offs} {fl} n={n} min={mn:#x}")
+    print("   genesis passes at bits 0x1d00ffff and at its digest, fails at "
+          "digest - 1", flush=True)
+    headers = rng.integers(0, 256, (37, 80), dtype=np.uint8)
+    hl = limbs_of_digests(sha256d_values(headers))
+    pattern = np.array([0, -1, 1])[np.arange(37) % 3]
+    offs, _, n, mn = failures(host(sc.sha256d_verify(
+        on_card(st.headers_to_words(headers)), on_card(boundary(hl, pattern)),
+        37)), 16)
+    check(offs == list(range(1, 37, 3)) and n == 12 and mn == int(hl[:, 0].min()),
+          f"boundary batch: failures {offs}, n={n}")
+    print(f"   37 headers at v, v-1, v+1: failures {offs} = hashlib's", flush=True)
+
+    # -- 14. B2 against its plain version --------------------------------------
+    phase("14 B2 vs plain version on the card")
+    for lanes, k in ((1024, 512), (1 << 20, 16)):
+        headers = rng.integers(0, 256, (lanes, 80), dtype=np.uint8)
+        hl = limbs_of_digests(sha256d_values(headers))
+        words = st.headers_to_words(headers)
+        third = np.array([0, -1, 1])[rng.integers(0, 3, lanes)]
+        a = versus_plain(f"{lanes} lanes, one Byzantine in three", words,
+                         boundary(hl, third), lanes, k)
+        want = np.nonzero(third == -1)[0]
+        check(int(a[2 * k]) == len(want), "failure count != Byzantine count")
+        if len(want) <= k:
+            check(a[:len(want)].tolist() == want.tolist(),
+                  "failing offsets != the Byzantine rows")
+        if lanes == 1 << 20:
+            few = np.zeros(lanes, dtype=np.int64)
+            few[rng.choice(lanes, 9, replace=False)] = -1
+            a = versus_plain(f"{lanes} lanes, 9 Byzantine", words,
+                             boundary(hl, few), lanes, k)
+            check(a[:9].tolist() == np.nonzero(few)[0].tolist(),
+                  "2^20 lanes: failing offsets != the Byzantine rows")
+    zeros = np.zeros((1024, 8), dtype=np.uint32)  # zero targets: all fail
+    versus_plain("count stops short (rows past it would all fail)", words[:1024],
+                 np.concatenate([hl[:700], zeros[700:]]), 700, 16)
+    a = versus_plain("empty batch", words[:64], zeros[:64], 0, 16)
+    check(int(a[32]) == 0 and int(a[34]) == full, "empty batch buffer")
+
+    # -- 15. the scrypt verify path ----------------------------------------------
+    phase("15 scrypt verify path vs plain version and hashlib, 1,024 and 256 lanes")
+    scc.romix_launches.reset()
+    # the ledger's shape: 1,024 lanes (four blocks of the epilogue), k = 16,
+    # a planted failure in each block at v - 1, the rest at v + 1 or v
+    headers = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
+    hl = limbs_of_digests(scrypt_values(headers))
+    pattern = np.array([0, 1])[rng.integers(0, 2, 1024)]
+    planted = np.sort(rng.integers(0, 256, 4) + 256 * np.arange(4))
+    pattern[planted] = -1
+    a = versus_plain("scrypt, 1,024 lanes, 4 planted failures",
+                     st.headers_to_words(headers), boundary(hl, pattern), 1024,
+                     16, scrypt=True)
+    check(a[:4].tolist() == planted.tolist() and int(a[32]) == 4
+          and a[16:20].tolist() == hl[planted, 0].tolist()
+          and int(a[34]) == int(hl[:, 0].min()), "scrypt verify vs hashlib, 1,024 lanes")
+    print(f"   failing lanes {planted.tolist()}, their top limbs and the min "
+          f"top limb equal hashlib's", flush=True)
+    headers = rng.integers(0, 256, (256, 80), dtype=np.uint8)
+    hl = limbs_of_digests(scrypt_values(headers))
+    pattern = np.array([0, -1, 1])[np.arange(256) % 3]
+    a = versus_plain("scrypt, 256 lanes at v, v-1, v+1",
+                     st.headers_to_words(headers), boundary(hl, pattern), 256,
+                     128, scrypt=True)
+    check(a[:85].tolist() == list(range(1, 256, 3)) and int(a[256]) == 85
+          and int(a[258]) == int(hl[:, 0].min()), "scrypt verify vs hashlib")
+    check(scc.romix_launches.value == 2, "the scrypt verify path ran no ROMix kernel")
+    print("   the 85 failures and the min top limb equal hashlib's", flush=True)
+
+    # -- 16. main path: the pool ledger ------------------------------------------
+    phase("16 main path: PoolManager.on_share_batch -> ValidationBackend on the card")
+
+    def byzantine_difficulty(v: int) -> float:
+        """the float difficulty whose target is the largest below v"""
+        s = (tgt.DIFF1_TARGET << 32) // v + 1
+        while (tgt.DIFF1_TARGET << 32) // s >= v:
+            s += 1
+        return s / (1 << 32)
+
+    def flush(algorithm, count, first):
+        headers = rng.integers(0, 256, (count, 80), dtype=np.uint8)
+        digests = (scrypt_values if algorithm == "scrypt" else sha256d_values)(headers)
+        byz = rng.random(count) < 1 / 256
+        batch, honest = [], []
+        for i in range(count):
+            d = digests[32 * i:32 * i + 32]
+            v = int.from_bytes(d, "little")
+            diff = (byzantine_difficulty(v) if byz[i]
+                    else tgt.target_to_difficulty(v) * 0.5)
+            honest.append(v <= tgt.difficulty_to_target(diff))
+            batch.append(AcceptedShare(
+                session_id=first + i, worker_user=f"w.{(first + i) % 4096}",
+                job_id="ledger", difficulty=diff, actual_difficulty=diff,
+                digest=d, header=headers[i].tobytes(),
+                extranonce2=struct.pack(">I", first + i), ntime=1_700_000_000,
+                nonce_word=0, is_block=False, submitted_at=1_700_000_000.0,
+                algorithm=algorithm))
+        return batch, honest
+
+    t0 = time.monotonic()
+    sha_flushes = [flush("sha256d", 1024, 1024 * f) for f in range(64)]
+    sha_flushes.append(flush("sha256d", 64, 1 << 20))
+    scrypt_flushes = [flush("scrypt", 1024, (1 << 21) + 1024 * f) for f in range(4)]
+    print(f"   {64 * 1024 + 64} sha256d and {4 * 1024} scrypt shares built and "
+          f"hashed by hashlib in {time.monotonic() - t0:.1f} s", flush=True)
+    pm = PoolManager(connect_database(":memory:"), MockChainClient())
+    pm.validator = ValidationBackend(min_batch=128, tripwire_rate=0.05, seed=SEED)
+    for counter in (sc.verify_launches, scc.verify_launches, scc.romix_launches,
+                    st.calls, sct.calls):
+        counter.reset()
+
+    async def producer(pm, flushes, outcomes, seconds):
+        for batch, _ in flushes:
+            t = time.monotonic()
+            outcomes.append(await pm.on_share_batch(batch))
+            seconds.append(time.monotonic() - t)
+
+    async def ledger(pm, *producers):
+        """each list of flushes from a producer of its own, all at once;
+        returns each one's (outcomes, seconds per flush) and the wall time"""
+        outs = [([], []) for _ in producers]
+        t = time.monotonic()
+        await asyncio.gather(*(producer(pm, f, *o)
+                               for f, o in zip(producers, outs)))
+        return outs, time.monotonic() - t
+
+    def flush_rates(seconds):
+        """shares/s of each 1,024-share sha256d flush: median, min, max"""
+        rates = sorted(1024 / x for x in seconds[:64])
+        return f"median {rates[32]:.1f}, min {rates[0]:.1f}, max {rates[-1]:.1f}"
+
+    # the sha256d ledger and a second producer (the scrypt flushes)
+    # dispatch at once, as two pool front ends would
+    ((sha_out, sha_s), (scrypt_out, _)), seconds = asyncio.run(
+        ledger(pm, sha_flushes, scrypt_flushes))
+    b2_launches = sc.verify_launches.value
+    verify_launches = scc.verify_launches.value
+    romix_ledger = scc.romix_launches.value
+    plain_calls = st.calls.value + sct.calls.value
+    snap = pm.validator.snapshot()
+    honest_total, shares = 0, 0
+    for flushes, outs in ((sha_flushes, sha_out), (scrypt_flushes, scrypt_out)):
+        for (batch, honest), outcomes in zip(flushes, outs):
+            for ok, outcome in zip(honest, outcomes):
+                check(outcome == (("ok", "") if ok else ("err", "share failed validation")),
+                      f"ledger outcome {outcome} != hashlib's verdict {ok}")
+            honest_total += sum(honest)
+            shares += len(batch)
+    device_shares = 68 * 1024
+    check(pm.shares.count() == honest_total
+          and pm.ledger_stats == {"batches": 69, "shares_ok": honest_total,
+                                  "shares_rejected": shares - honest_total},
+          f"books: {pm.shares.count()} shares, {pm.ledger_stats}, honest "
+          f"{honest_total}")
+    check(snap["device_batches"] == 68 and snap["crossover_batches"] == 1
+          and snap["validated_device"] == device_shares
+          and snap["device_errors"] == 0 and snap["tripwire_mismatches"] == 0
+          and snap["overflows"] == 0 and snap["tripwire_checks"] > 68,
+          f"validator snapshot {snap}")
+    check(b2_launches == 64, f"B2 launched {b2_launches} times, not 64")
+    check(verify_launches == romix_ledger == 4,
+          f"scrypt verify launches {verify_launches}, ROMix {romix_ledger}")
+    check(plain_calls == 0, f"the ledger called a plain version {plain_calls} times")
+    ds = snap["device_seconds"]
+    print(f"   {shares} shares in {seconds:.2f} s = {shares / seconds:.0f} shares/s "
+          f"through on_share_batch ({len(sha_flushes)} sha256d and "
+          f"{len(scrypt_flushes)} scrypt flushes, two producers at once); "
+          f"every outcome = hashlib's verdict; books: {pm.shares.count()} "
+          f"shares = the honest ones, {shares - honest_total} rejected; "
+          f"validator: device batches {snap['device_batches']}, crossover "
+          f"{snap['crossover_batches']}, validated on the card "
+          f"{snap['validated_device']}, tripwire checks "
+          f"{snap['tripwire_checks']}, mismatches "
+          f"{snap['tripwire_mismatches']}, device errors "
+          f"{snap['device_errors']}, overflows {snap['overflows']}; "
+          f"device_seconds p50 {ds['p50_ms']:.3f} ms, p99 {ds['p99_ms']:.3f} ms "
+          f"(histogram buckets), mean {ds['avg_ms']:.3f} ms; B2 launches "
+          f"{b2_launches}, scrypt verify launches {verify_launches}, ROMix "
+          f"launches {romix_ledger}, plain-version calls {plain_calls}",
+          flush=True)
+    print(f"   per sha256d flush of 1,024, shares/s over the 64 flushes beside "
+          f"the scrypt producer: {flush_rates(sha_s)}", flush=True)
+    del pm
+
+    # outside the counted run: the sha256d flushes alone, on a fresh ledger
+    pm = PoolManager(connect_database(":memory:"), MockChainClient())
+    pm.validator = ValidationBackend(min_batch=128, tripwire_rate=0.05, seed=SEED)
+    ((alone_out, alone_s),), alone = asyncio.run(ledger(pm, sha_flushes))
+    check(alone_out == sha_out, "the sha256d flushes alone gave other outcomes")
+    n_sha = sum(len(b) for b, _ in sha_flushes)
+    print(f"   sha256d flushes alone: {n_sha} shares in {alone:.3f} s = "
+          f"{n_sha / alone:.1f} shares/s; per flush {flush_rates(alone_s)}; "
+          f"device_seconds {pm.validator.snapshot()['device_seconds']}", flush=True)
+    del pm
+
+    # an overflowed batch (one Byzantine share in three, past k = 16) is
+    # settled on the card: B2 again with a slot for every failure
+    headers = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
+    hl = limbs_of_digests(sha256d_values(headers))
+    third = np.array([0, -1, 1])[rng.integers(0, 3, 1024)]
+    tl = boundary(hl, third)
+    validator = ValidationBackend(min_batch=128, tripwire_rate=0.05, seed=SEED)
+    sc.verify_launches.reset()
+    verdicts = asyncio.run(validator.verify_batch([
+        ShareCheck(headers[i].tobytes(), tgt.limbs_to_target(tl[i]))
+        for i in range(1024)]))
+    snap = validator.snapshot()
+    check(verdicts == (third != -1).tolist(), "overflowed batch: verdicts != hashlib's")
+    check(snap["overflows"] == 1 and snap["device_batches"] == 1
+          and snap["host_batches"] == 0 and snap["device_errors"] == 0
+          and snap["tripwire_mismatches"] == 0 and sc.verify_launches.value == 2,
+          f"overflowed batch: snapshot {snap}, B2 launches {sc.verify_launches.value}")
+    print(f"   overflowed batch: {int((third == -1).sum())} failures of 1,024 past "
+          f"k = 16, settled by a second B2 launch; verdicts = hashlib's", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 17. times ---------------------------------------------------------------
+    phase("17 B2 and scrypt verify times")
+    stream = torch.cuda.Stream(dev)
+    headers = rng.integers(0, 256, (1 << 20, 80), dtype=np.uint8)
+    w_all = on_card(st.headers_to_words(headers))
+    t_all = on_card(np.full((1 << 20, 8), full, dtype=np.uint32))
+    torch.cuda.synchronize(dev)
+    b2 = {}
+    for lanes in (128, 1024, 4096, 1 << 20):
+        w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
+        torch.cuda.synchronize(dev)
+        ms, rounds = median_ms(lambda: sc.sha256d_verify(w, t, lanes,
+                                                         stream=stream),
+                               stream, 20 if lanes < 1 << 20 else 5)
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        st.sha256d_verify_step(w, t, lanes - 1, k=16)
+        torch.cuda.synchronize(dev)
+        plain = (time.monotonic() - t0) * 1e3
+        ops_ms = sc.verify_ops_per_share() * lanes / int_ops_per_s * 1e3
+        bytes_ms = (sc.verify_bytes_per_share() * lanes
+                    + sc.winner_buffer_words(16) * 4) / HBM_BYTES_PER_S * 1e3
+        b2[lanes] = (ms, plain, max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"   B2 {lanes} lanes: {ms:.4f} ms per launch (rounds "
+              + ", ".join(f"{r:.4f}" for r in rounds)
+              + f") = {lanes / ms * 1e3:.3e} shares/s; bound {b2[lanes][2]:.5f}"
+              f" ms ({b2[lanes][3]}: {sc.verify_ops_per_share()} int32 ops, "
+              f"{sc.verify_bytes_per_share()} B a share); plain version "
+              f"{plain:.1f} ms; {card}", flush=True)
+    # where B2's call goes at 1,024 and 2^20 lanes: the host's enqueue of
+    # one call (no wait), the wrapper's two device transposes, and the three
+    # kernels alone on word-major inputs (straight through the library, so
+    # uncounted)
+    lib = sc.load_library()
+    out = torch.empty(sc.winner_buffer_words(16), dtype=torch.int32, device=dev)
+    for lanes in (1024, 1 << 20):
+        w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
+        wm, tm = w.t().contiguous(), t.t().contiguous()
+        torch.cuda.synchronize(dev)
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            for _ in range(100):
+                sc.sha256d_verify(w, t, lanes, stream=stream)
+            enqueue_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize(dev)
+        transpose_ms, _ = median_ms(lambda: (w.t().contiguous(),
+                                             t.t().contiguous()), stream, 20)
+        kernels_ms, _ = median_ms(lambda: lib.otedama_sha256d_verify(
+            wm.data_ptr(), tm.data_ptr(), lanes, 16, out.data_ptr(),
+            stream.cuda_stream), stream, 20)
+        print(f"   B2 {lanes} lanes, per call: host enqueue {enqueue_us:.1f} us; "
+              f"on the card the two transposes {transpose_ms:.4f} ms and the "
+              f"init, verify and finalize kernels {kernels_ms:.4f} ms "
+              f"({b2[lanes][2] / kernels_ms:.1%} of the bound); {card}",
+              flush=True)
+    for lanes in (1024, 4096):
+        w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
+        scratch = (torch.empty(scc.ROW_WORDS * lanes, dtype=torch.int32, device=dev),
+                   torch.empty(scc.scratch_words(lanes), dtype=torch.int32, device=dev))
+        torch.cuda.synchronize(dev)
+        ms, rounds = median_ms(lambda: scc.scrypt_verify(
+            w, t, lanes, scratch=scratch, stream=stream), stream, 3)
+        ops_ms = scc.ops_per_hash() * lanes / int_ops_per_s * 1e3
+        bytes_ms = ((scc.v_bytes_per_hash() + sc.verify_bytes_per_share())
+                    * lanes / HBM_BYTES_PER_S * 1e3)
+        print(f"   scrypt verify {lanes} lanes: {ms:.3f} ms (rounds "
+              + ", ".join(f"{r:.3f}" for r in rounds)
+              + f") = {lanes / ms * 1e3:.0f} shares/s; bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
+              f"{scc.ops_per_hash():.0f} int32 ops and "
+              f"{scc.v_bytes_per_hash() + sc.verify_bytes_per_share()} B a share); "
+              f"{card}", flush=True)
+    del w_all, t_all
+    torch.cuda.empty_cache()
+
+    # where verify_batch on the card overtakes host validation: whole calls
+    # (the dispatch, its read-back and the tripwire's host sample, at the
+    # default 5%) against the host path on the validation executor
+    async def batch_ms(backend, checks, reps):
+        await backend.verify_batch(checks)
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            await backend.verify_batch(checks)
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[reps // 2]
+
+    async def crossover(algorithm, sizes, reps):
+        on_card = ValidationBackend(min_batch=1, seed=SEED)
+        on_host = ValidationBackend(device=None, seed=SEED)
+        headers = rng.integers(0, 256, (max(sizes), 80), dtype=np.uint8)
+        rows = []
+        for n in sizes:
+            checks = [ShareCheck(h.tobytes(), (1 << 256) - 1, algorithm)
+                      for h in headers[:n]]
+            rows.append((n, await batch_ms(on_card, checks, reps),
+                         await batch_ms(on_host, checks, reps)))
+        return rows
+
+    for algorithm, sizes, reps in (
+            ("sha256d", tuple(1 << i for i in range(11)), 21),
+            ("scrypt", (1, 2, 4, 8, 16, 32, 64), 5)):
+        rows = asyncio.run(crossover(algorithm, sizes, reps))
+        wins = [n for n, card_ms, host_ms in rows if card_ms <= host_ms]
+        at = next((n for n in sizes if all(m in wins for m in sizes if m >= n)),
+                  None)
+        print(f"   verify_batch {algorithm}, median ms of {reps} calls, card vs "
+              f"host: " + "; ".join(f"{n}: {c:.4f} vs {h:.4f}" for n, c, h in rows)
+              + f"; the card is as fast from {at} shares a batch; {card}",
+              flush=True)
+
+    ms, plain, bound, by = b2[1024]       # the ledger's flush size
+    record = {
+        "name": "sha256d_verify",
+        "route": "cuda",
+        "source": "otedama_tpu_torch/kernels/csrc/sha256d.cu",
+        "replaces": "otedama_tpu/kernels/sha256_pallas.py:451",
+        "launches": b2_launches,
+        "max_abs_err": max_err["B2"],
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "path": "pool ledger on_share_batch (phase 16)",
+    }
+    return record, romix_ledger, max_err["scrypt"]
+
+
 def main() -> int:
     import torch
 
@@ -644,17 +1134,19 @@ def main() -> int:
           f"SMs, max SM clock {clock_mhz:.0f} MHz", flush=True)
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(m.load_library) for m in (sc, scc)]:
+        for f in [pool.submit(load) for load in (sc.load_library,
+                                                 scc.load_library)]:
             f.result()
     print(f"   kernels built and loaded in {time.monotonic() - t0:.1f} s",
           flush=True)
-    for mod in (sc, scc):
-        print(f"   {mod.build_info['library']}: nvcc "
-              f"{mod.build_info.get('seconds', 0.0):.1f} s", flush=True)
-        for line in mod.build_info.get("ptxas", "").splitlines():
+    for info in (sc.build_info, scc.build_info):
+        print(f"   {info['library']}: nvcc {info.get('seconds', 0.0):.1f} s",
+              flush=True)
+        for line in info.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"   ptxas: {line.strip()}", flush=True)
     print_sass_mix(sc.build_info["library"], "search_kernel")
+    print_sass_mix(sc.build_info["library"], "verify_kernel")
     print_sass_mix(scc.build_info["library"], "romix_kernel")
 
     # -- 2. known answer: the genesis block -----------------------------------
@@ -835,7 +1327,7 @@ def main() -> int:
     kernels = [{
         "name": "sha256d_search",
         "route": "cuda",
-        "source": "otedama_tpu_torch/kernels/csrc/sha256d_search.cu",
+        "source": "otedama_tpu_torch/kernels/csrc/sha256d.cu",
         "replaces": "otedama_tpu/kernels/sha256_pallas.py:293",
         "launches": main_launches,
         "max_abs_err": max_abs_err,
@@ -847,6 +1339,14 @@ def main() -> int:
         "path": "solo sha256d Application (phase 4)",
     }]
     kernels += scrypt_phases(dev, card, int_ops_per_s)
+    b2_record, romix_ledger, verify_err = validation_phases(
+        dev, card, int_ops_per_s)
+    b5 = next(r for r in kernels if r["name"] == "scrypt_romix")
+    b5["path"] += (f": {b5['launches']} launches; pool ledger scrypt flushes "
+                   f"through the verify path (phase 16): {romix_ledger}")
+    b5["launches"] += romix_ledger
+    b5["max_abs_err"] = max(b5["max_abs_err"], verify_err)
+    kernels.append(b2_record)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

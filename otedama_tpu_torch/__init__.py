@@ -9,8 +9,8 @@ and the standard library only — never ``jax`` and nothing of
 
 Entry points run on CUDA unless the caller asks for the CPU explicitly
 (``kind="torch", device="cpu"``). The kernels are hand-written CUDA C++
-(``kernels/csrc/sha256d_search.cu`` for sha256d, ``kernels/csrc/scrypt.cu``
-for scrypt), built at first use.
+(``kernels/csrc/sha256d.cu`` for sha256d, ``kernels/csrc/scrypt.cu`` for
+scrypt), built at first use.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,11 @@
 //     chained BlockMixes into V, then 1024 x X = BlockMix(X ^ V[X[16] &
 //     1023]); `half_v` keeps the even rows and recomputes an odd row as
 //     BlockMix of the row before it).
-// and adds the two ends of the search (pbkdf2_prologue, search_epilogue).
+// and adds the two ends of the search (pbkdf2_prologue, search_epilogue)
+// and of share validation (verify_prologue, verify_epilogue: each lane a
+// submitted header of its own, compared against its own target, the
+// FAILURES compacted by lane offset — the scrypt twin of
+// sha256d.cu's verify_kernel, with romix_kernel between them).
 // PBKDF2 is no Pallas kernel in the reference (jnp inside one XLA program,
 // otedama_tpu/kernels/scrypt_jax.py scrypt_1024_1_1): it is CUDA here only
 // because 21 SHA-256 compressions per lane in eager torch would cost more
@@ -31,7 +35,7 @@
 //   - 64-bit index arithmetic: rows x lanes x 32 words passes 2^31;
 //   - X in and out word-major [32, lanes] (word w of all lanes contiguous),
 //     the layout of the TPU kernels' refs, so the loads are coalesced;
-//   - the search's winners, as in sha256d_search.cu: an exact 256-bit
+//   - the search's winners, as in sha256d.cu: an exact 256-bit
 //     compare per lane, slots by atomicAdd, the min top limb through a
 //     block reduce and one atomicMin per block, a finalize sort by offset.
 
@@ -171,17 +175,41 @@ __global__ void __launch_bounds__(kRomixThreads)
   for (int w = 0; w < 32; ++w) xio[w * lanes + lane] = x[w];
 }
 
+// The 20 big-endian words of a lane's header: a search lane's are the 19
+// parameter words and its nonce, a share's under validation its own 20.
+// Indices are compile-time constants after unrolling, so a search lane's
+// words stay kernel-parameter operands.
+struct SearchHeader {
+  const ScryptParams& p;
+  uint32_t nonce;
+  __device__ __forceinline__ uint32_t operator[](int i) const {
+    return i < 19 ? p.h[i] : nonce;
+  }
+};
+
+struct ShareHeader {
+  uint32_t w[20];
+  // word i of lane `lane` in word-major [20, lanes]
+  __device__ __forceinline__ ShareHeader(const uint32_t* words,
+                                         unsigned long long lane,
+                                         unsigned long long lanes) {
+#pragma unroll
+    for (int i = 0; i < 20; ++i) w[i] = words[i * lanes + lane];
+  }
+  __device__ __forceinline__ uint32_t operator[](int i) const { return w[i]; }
+};
+
 // key0 = SHA256(header80) and the HMAC inner and outer states it keys.
-__device__ __forceinline__ void hmac_states(const ScryptParams& p,
-                                            uint32_t nonce, uint32_t is[8],
+template <class Header>
+__device__ __forceinline__ void hmac_states(const Header& hdr, uint32_t is[8],
                                             uint32_t os[8]) {
   uint32_t key[8] = SHA256_IV_INIT;
   uint32_t w[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = p.h[i];
+  for (int i = 0; i < 16; ++i) w[i] = hdr[i];
   sha256_compress(key, w);
-  uint32_t w2[16] = {p.h[16], p.h[17], p.h[18], nonce, 0x80000000u, 0, 0, 0,
-                     0,       0,       0,       0,     0,           0, 0, 640};
+  uint32_t w2[16] = {hdr[16], hdr[17], hdr[18], hdr[19], 0x80000000u, 0, 0, 0,
+                     0,       0,       0,       0,       0,           0, 0, 640};
   sha256_compress(key, w2);
   const uint32_t iv[8] = SHA256_IV_INIT;
 #pragma unroll
@@ -212,30 +240,29 @@ __device__ __forceinline__ void hmac_finish(const uint32_t os[8],
 }
 
 // PBKDF2 pass 1: X = T1 || T2 || T3 || T4, T_i = HMAC(header, header ||
-// INT(i)), as little-endian words into word-major [32, lanes].
-__global__ void __launch_bounds__(kThreads)
-    pbkdf2_prologue(const ScryptParams p, unsigned long long lanes,
-                    uint32_t* xout) {
-  const unsigned long long lane =
-      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const uint32_t nonce = p.base + static_cast<uint32_t>(lane);
+// INT(i)), as little-endian words into column `lane` of word-major
+// [32, lanes].
+template <class Header>
+__device__ __forceinline__ void pbkdf2_x(const Header& hdr,
+                                         unsigned long long lane,
+                                         unsigned long long lanes,
+                                         uint32_t* xout) {
   uint32_t is[8], os[8];
-  hmac_states(p, nonce, is, os);
+  hmac_states(hdr, is, os);
   uint32_t imid[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) imid[i] = is[i];
   uint32_t w[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = p.h[i];
+  for (int i = 0; i < 16; ++i) w[i] = hdr[i];
   sha256_compress(imid, w);
 #pragma unroll 1
   for (uint32_t blk = 1; blk <= 4; ++blk) {
     uint32_t inner[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) inner[i] = imid[i];
-    uint32_t wb[16] = {p.h[16], p.h[17], p.h[18], nonce, blk, 0x80000000u,
-                       0,       0,       0,       0,     0,   0,
+    uint32_t wb[16] = {hdr[16], hdr[17], hdr[18], hdr[19], blk, 0x80000000u,
+                       0,       0,       0,       0,       0,   0,
                        0,       0,       0,       1184};  // (64+80+4)*8
     sha256_compress(inner, wb);
     uint32_t t[8];
@@ -246,8 +273,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// PBKDF2 pass 2 and the compare: digest = HMAC(header, B' || INT(1)), limb
-// j = bswap(digest[7 - j]); every lane below `lanes` is in range.
+// PBKDF2 pass 2 of column `lane` of x: digest = HMAC(header, B' || INT(1)),
+// returned as compare limbs, most-significant-first: h[j] =
+// bswap(digest[7 - j]).
+template <class Header>
+__device__ __forceinline__ void pbkdf2_limbs(const Header& hdr,
+                                             const uint32_t* x,
+                                             unsigned long long lane,
+                                             unsigned long long lanes,
+                                             uint32_t h[8]) {
+  uint32_t is[8], os[8];
+  hmac_states(hdr, is, os);
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = bswap32(x[i * lanes + lane]);
+  sha256_compress(is, w);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = bswap32(x[(16 + i) * lanes + lane]);
+  sha256_compress(is, w);
+  uint32_t wl[16] = {1, 0x80000000u, 0, 0, 0, 0, 0, 0,
+                     0, 0,           0, 0, 0, 0, 0, 1568};  // (64+128+4)*8
+  sha256_compress(is, wl);
+  uint32_t d[8];
+  hmac_finish(os, is, d);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = bswap32(d[7 - j]);
+}
+
+// The search's PBKDF2 pass 1 for nonces base + lane.
+__global__ void __launch_bounds__(kThreads)
+    pbkdf2_prologue(const ScryptParams p, unsigned long long lanes,
+                    uint32_t* xout) {
+  const unsigned long long lane =
+      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  pbkdf2_x(SearchHeader{p, p.base + static_cast<uint32_t>(lane)}, lane, lanes,
+           xout);
+}
+
+// The search's PBKDF2 pass 2 and the compare against the job's target;
+// every lane below `lanes` is in range.
 __global__ void __launch_bounds__(kThreads)
     search_epilogue(const ScryptParams p, unsigned long long lanes,
                     const uint32_t* x, uint32_t* out, int k) {
@@ -256,25 +321,42 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t best = kNoWinner;
   if (lane < lanes) {
     const uint32_t nonce = p.base + static_cast<uint32_t>(lane);
-    uint32_t is[8], os[8];
-    hmac_states(p, nonce, is, os);
-    uint32_t w[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = bswap32(x[i * lanes + lane]);
-    sha256_compress(is, w);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = bswap32(x[(16 + i) * lanes + lane]);
-    sha256_compress(is, w);
-    uint32_t wl[16] = {1, 0x80000000u, 0, 0, 0, 0, 0, 0,
-                       0, 0,           0, 0, 0, 0, 0, 1568};  // (64+128+4)*8
-    sha256_compress(is, wl);
-    uint32_t d[8];
-    hmac_finish(os, is, d);
     uint32_t h[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) h[j] = bswap32(d[7 - j]);
+    pbkdf2_limbs(SearchHeader{p, nonce}, x, lane, lanes, h);
     best = h[0];
     if (limbs_le(h, p.limbs)) take_slot(out, k, nonce, h[0]);
+  }
+  block_min_to<kThreads>(best, &out[2 * k + 2]);
+}
+
+// Share validation's PBKDF2 pass 1: each lane's header is its own, read
+// from word-major [20, lanes]; its HMAC key SHA256(header) is per lane.
+__global__ void __launch_bounds__(kThreads)
+    verify_prologue(const uint32_t* words, unsigned long long lanes,
+                    uint32_t* xout) {
+  const unsigned long long lane =
+      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  pbkdf2_x(ShareHeader(words, lane, lanes), lane, lanes, xout);
+}
+
+// Share validation's PBKDF2 pass 2 and the compare of each lane against its
+// own target limbs (word-major [8, lanes]); FAILING lanes take slots with
+// their lane offset, and every lane's top limb goes into the min.
+__global__ void __launch_bounds__(kThreads)
+    verify_epilogue(const uint32_t* words, const uint32_t* limbs,
+                    unsigned long long lanes, const uint32_t* x, uint32_t* out,
+                    int k) {
+  const unsigned long long lane =
+      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  uint32_t best = kNoWinner;
+  if (lane < lanes) {
+    uint32_t h[8], t[8];
+    pbkdf2_limbs(ShareHeader(words, lane, lanes), x, lane, lanes, h);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = limbs[j * lanes + lane];
+    best = h[0];
+    if (!limbs_le(h, t)) take_slot(out, k, static_cast<uint32_t>(lane), h[0]);
   }
   block_min_to<kThreads>(best, &out[2 * k + 2]);
 }
@@ -354,6 +436,41 @@ int otedama_scrypt_epilogue(const uint32_t* host_params,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   finalize_buffer<<<1, 1, 0, s>>>(out, k, p.base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Start a share validation: clear the failure buffer out[2k+3] and, for
+// lanes > 0, fill x[32, lanes] with PBKDF2 pass 1 of the headers in
+// words[20, lanes].
+int otedama_scrypt_verify_prologue(const uint32_t* words,
+                                   unsigned long long lanes, uint32_t* x,
+                                   uint32_t* out, int k, void* stream) {
+  if (k < 1 || lanes > 0xFFFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  init_buffer<<<1, kThreads, 0, s>>>(out, k);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || lanes == 0) return static_cast<int>(e);
+  verify_prologue<<<blocks_for(lanes, kThreads), kThreads, 0, s>>>(words, lanes,
+                                                                   x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Finish a share validation: PBKDF2 pass 2 of x[32, lanes], the compare
+// against limbs[8, lanes], then the sort of the failure slots by offset.
+int otedama_scrypt_verify_epilogue(const uint32_t* words, const uint32_t* limbs,
+                                   unsigned long long lanes, const uint32_t* x,
+                                   uint32_t* out, int k, void* stream) {
+  if (k < 1 || lanes > 0xFFFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes > 0) {
+    verify_epilogue<<<blocks_for(lanes, kThreads), kThreads, 0, s>>>(
+        words, limbs, lanes, x, out, k);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  finalize_buffer<<<1, 1, 0, s>>>(out, k, 0u);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
-// Device code shared by the port's search kernels (sha256d_search.cu,
-// scrypt.cu): SHA-256 rounds, and the uint32[2k+3] winner buffer that
-// every search launch fills:
+// Device code shared by the port's kernels (sha256d.cu, scrypt.cu): SHA-256 rounds, and the uint32[2k+3]
+// winner buffer that every search launch fills (a verify launch fills it
+// with failing lane offsets, base 0):
 //   [win_nonce[k] | win_limb[k] | n_winners, 0, min_top_limb]
 // Winners take slots with atomicAdd on the count (arbitrary order) and a
 // one-thread finalize launch sorts the <= k slots by launch offset, so for

@@ -9,6 +9,10 @@ prologue (header -> X), the ROMix (``romix``, or the ``blockmix`` tier's
 2,048 BlockMix launches around a ``torch.gather`` of V's rows), and the
 epilogue (PBKDF2 -> digest -> exact 256-bit compare -> winners), with the
 ``uint32[2k+3]`` buffer of ``scrypt_jax.scrypt_search_winners``.
+``scrypt_verify`` is share validation, the counterpart of
+``scrypt_jax.scrypt_verify_step``: a verify prologue (each lane's own
+header -> X), the ROMix (B5), and a verify epilogue (-> digest -> exact
+compare with each lane's own target -> FAILURES by lane offset).
 
 Each wrapper takes int32 tensors that carry the uint32 bit patterns, in
 the word-major ``[32, B]`` layout of the TPU kernels. Given CPU tensors
@@ -28,7 +32,10 @@ import torch
 
 from otedama_tpu_torch.kernels import LaunchCounter, cuda_build
 from otedama_tpu_torch.kernels import scrypt_torch as st
-from otedama_tpu_torch.kernels.sha256_cuda import winner_buffer_words
+from otedama_tpu_torch.kernels.sha256_cuda import (
+    check_verify_inputs,
+    winner_buffer_words,
+)
 
 SOURCE = "scrypt.cu"
 HEADERS = ("sha256_device.cuh",)
@@ -42,6 +49,7 @@ blockmix_launches = LaunchCounter()      # B3: BlockMix(X)
 blockmix_xor_launches = LaunchCounter()  # B4: BlockMix(X ^ V[j])
 romix_launches = LaunchCounter()         # B5: the whole ROMix
 search_launches = LaunchCounter()        # prologue + epilogue pairs
+verify_launches = LaunchCounter()        # verify prologue + epilogue pairs
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,6 +72,8 @@ def load_library() -> ctypes.CDLL:
             (lib.otedama_scrypt_romix, [p, p, n, i, p]),
             (lib.otedama_scrypt_prologue, [p, n, p, p, i, p]),
             (lib.otedama_scrypt_epilogue, [p, n, p, p, i, p]),
+            (lib.otedama_scrypt_verify_prologue, [p, n, p, p, i, p]),
+            (lib.otedama_scrypt_verify_epilogue, [p, p, n, p, p, i, p]),
         ):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -190,6 +200,15 @@ def _romix_by_blockmix(x: torch.Tensor, scratch: torch.Tensor,
             blockmix(x, vj, out=x, stream=stream)
 
 
+def _x_view(xs: torch.Tensor, lanes: int, device) -> torch.Tensor:
+    """X's word-major ``[32, lanes]`` view of the flat x scratch."""
+    if (xs.device != device or xs.dtype != torch.int32
+            or xs.numel() < ROW_WORDS * lanes or not xs.is_contiguous()):
+        raise ValueError(f"x scratch must be a contiguous int32 tensor of "
+                         f"at least {ROW_WORDS * lanes} words on {device}")
+    return xs[:ROW_WORDS * lanes].view(ROW_WORDS, lanes)
+
+
 def _pack_params(header19, base: int, limbs) -> np.ndarray:
     """The 28 parameter words of a search: 19 header words, the nonce
     base, the 8 target limbs (most-significant-first)."""
@@ -246,11 +265,7 @@ def scrypt_search(header19, base: int, limbs, last: int, *, n: int,
                        torch.empty(scratch_words(lanes), dtype=torch.int32,
                                    device=device))
         xs, vs = scratch
-        if (xs.device != device or xs.dtype != torch.int32
-                or xs.numel() < ROW_WORDS * lanes or not xs.is_contiguous()):
-            raise ValueError(f"x scratch must be a contiguous int32 tensor of "
-                             f"at least {ROW_WORDS * lanes} words on {device}")
-        x = xs[:ROW_WORDS * lanes].view(ROW_WORDS, lanes)
+        x = _x_view(xs, lanes, device)
         lib = load_library()
         _check(lib, lib.otedama_scrypt_prologue(
             params.ctypes.data, lanes, x.data_ptr(), out.data_ptr(), k,
@@ -264,6 +279,57 @@ def scrypt_search(header19, base: int, limbs, last: int, *, n: int,
             params.ctypes.data, lanes, x.data_ptr(), out.data_ptr(), k,
             stream.cuda_stream), "scrypt epilogue")
     search_launches.add()
+    return out
+
+
+def scrypt_verify(words20: torch.Tensor, limbs: torch.Tensor, count: int, *,
+                  k: int = 16,
+                  scratch: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  stream: torch.cuda.Stream | None = None) -> torch.Tensor:
+    """Validate the first ``count`` scrypt shares: ``words20`` int32
+    ``[B, 20]`` header words and ``limbs`` int32 ``[B, 8]`` target limbs,
+    as ``sha256_cuda.sha256d_verify`` takes them. Returns the
+    ``uint32[2k+3]`` failure buffer (lane offsets of failing shares) as an
+    int32 tensor on the inputs' device.
+
+    Given CPU tensors it runs the plain version. Given CUDA tensors it
+    launches the verify prologue, the ROMix kernel (B5, full V) and the
+    verify epilogue on ``stream`` without synchronizing, or raises;
+    ``scratch`` is ``(x, v)`` as for ``scrypt_search``, sized for
+    ``count`` lanes (default: allocated for this call)."""
+    check_verify_inputs(words20, limbs, count)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    device = words20.device
+    if device.type == "cpu":
+        return st.scrypt_verify_step(words20, limbs, count - 1, k=k)
+    if device.type != "cuda":
+        raise ValueError(f"scrypt_verify runs on cuda or cpu, not {device}")
+    if words20.dtype != torch.int32 or limbs.dtype != torch.int32:
+        raise ValueError("words20 and limbs must be int32 tensors")
+    stream = _stream(stream, device)
+    lib = load_library()
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        w = words20[:count].t().contiguous()    # word-major [20, count]
+        t = limbs[:count].t().contiguous()      # [8, count]
+        out = torch.empty(winner_buffer_words(k), dtype=torch.int32,
+                          device=device)
+        if scratch is None:
+            scratch = (torch.empty(ROW_WORDS * count, dtype=torch.int32,
+                                   device=device),
+                       torch.empty(scratch_words(count), dtype=torch.int32,
+                                   device=device))
+        xs, vs = scratch
+        x = _x_view(xs, count, device)
+        _check(lib, lib.otedama_scrypt_verify_prologue(
+            w.data_ptr(), count, x.data_ptr(), out.data_ptr(), k,
+            stream.cuda_stream), "scrypt verify prologue")
+        if count:
+            _romix_in_place(x, False, vs, stream)
+        _check(lib, lib.otedama_scrypt_verify_epilogue(
+            w.data_ptr(), t.data_ptr(), count, x.data_ptr(), out.data_ptr(),
+            k, stream.cuda_stream), "scrypt verify epilogue")
+    verify_launches.add()
     return out
 
 

@@ -3,7 +3,8 @@ of work.
 
 Counterpart of ``otedama_tpu/kernels/scrypt_jax.py`` (``salsa_double_round``,
 ``salsa20_8``, ``blockmix_salsa8_r1``, ``scrypt_1024_1_1``,
-``scrypt_search_winners``, ``header_words19``, ``scrypt_digest_host``) and
+``scrypt_search_winners``, ``scrypt_verify_step``, ``header_words19``,
+``scrypt_digest_host``) and
 of the Pallas kernels of ``otedama_tpu/kernels/scrypt_pallas.py``:
 ``blockmix`` is the plain version of ``_bm_kernel`` / ``_bmx_kernel``
 (BlockMix, with the mix pass's XOR fused in when ``Vt`` is given) and
@@ -50,7 +51,7 @@ M32 = 0xFFFFFFFF
 SCRYPT_N = 1024
 
 # calls of the plain entry points (blockmix, romix, scrypt_search_buffer,
-# scrypt_search_buffers):
+# scrypt_search_buffers, scrypt_verify_step):
 # chip_smoke shows that the card's main path makes none
 calls = LaunchCounter()
 
@@ -259,16 +260,18 @@ def _hmac_finish(ostate, digest8, comp):
 
 
 def scrypt_1024_1_1(header_words, nonces, *, romix_fn=None):
-    """scrypt(header, header, N=1024, r=1, p=1, dkLen=32) across nonce lanes.
+    """scrypt(header, header, N=1024, r=1, p=1, dkLen=32) across lanes.
 
-    ``header_words``: 19 ints, the big-endian words of header[0:76];
-    ``nonces``: int64 ``[B]`` tensor of header word 19 (the big-endian read
-    of bytes 76:80). ``romix_fn`` maps word-major int32 ``[32, B]`` to the
-    same (default: the plain ROMix). Returns the 8 big-endian digest words
-    as int64 ``[B]`` tensors."""
+    ``header_words``: the 19 big-endian words of header[0:76], each an int
+    (one header for every lane, a search) or an int64 ``[B]`` tensor (a
+    header per lane, share validation); ``nonces``: int64 ``[B]`` tensor of
+    header word 19 (the big-endian read of bytes 76:80). ``romix_fn`` maps
+    word-major int32 ``[32, B]`` to the same (default: the plain ROMix).
+    Returns the 8 big-endian digest words as int64 ``[B]`` tensors."""
     comp = st.compress
     zero = torch.zeros_like(nonces)
-    hw = [zero + int(w) for w in header_words] + [nonces & M32]
+    hw = [zero + (w & M32 if torch.is_tensor(w) else int(w))
+          for w in header_words] + [nonces & M32]
 
     # key0 = SHA256(header80): two blocks
     iv = tuple(zero + v for v in SHA256_IV)
@@ -335,6 +338,20 @@ def _search_buffers(header19, windows, limbs, k: int, device):
         off += len(nw)
     out = torch.stack([b.cpu() for b in bufs]).numpy().astype(np.uint32)
     return torch.from_numpy(out.view(np.int32)).to(device)
+
+
+def scrypt_verify_step(words20, limbs, last: int, *, k: int):
+    """scrypt share validation of ``[B, 20]`` header words against per-lane
+    ``[B, 8]`` target limbs, failures compacted as
+    ``sha256_torch.compact_failures`` does (lanes past ``last`` take no
+    part): the counterpart of ``scrypt_jax.scrypt_verify_step`` and the
+    plain version of ``scrypt_cuda.scrypt_verify``. Takes int32 bit
+    patterns or int64 words; returns the int32 ``[2k+3]`` buffer."""
+    calls.add()
+    cols = _words(words20).unbind(1)
+    h = st.digest_words_to_compare_order(scrypt_1024_1_1(cols[:19], cols[19]))
+    passes = st.le256(h, _words(limbs).unbind(1))
+    return _bits(st.compact_failures(passes, h[0], int(last), k))
 
 
 def header_words19(header76: bytes) -> tuple[int, ...]:

@@ -1,16 +1,19 @@
-"""The sha256d search kernel on the card: build, binding and wrapper.
+"""The sha256d kernels on the card: build, binding and wrappers.
 
-``csrc/sha256d_search.cu`` replaces the Pallas TPU kernel
-``otedama_tpu/kernels/sha256_pallas.py`` ``_search_kernel``. It is built at
-first use by ``cuda_build`` (nvcc for ``sm_90a``, a shared library with a
-plain C entry point loaded through ``ctypes``). The job words
-ride in as kernel parameters, so a launch copies nothing to the device.
+``csrc/sha256d.cu`` replaces the Pallas TPU kernels of
+``otedama_tpu/kernels/sha256_pallas.py``: ``search_kernel`` its
+``_search_kernel`` (B1), ``verify_kernel`` its ``_verify_kernel`` (B2,
+share validation). The library is built at first use by ``cuda_build``
+(nvcc for ``sm_90a``, a shared library with plain C entry points loaded
+through ``ctypes``). The
+search's job words ride in as kernel parameters, so a search launch copies
+nothing to the device.
 
-``sha256d_search`` launches on a CUDA stream without synchronizing and
-returns the device ``uint32[2k+3]`` winner buffer (an int32 tensor, read
-back as uint32). For a CPU device it runs the plain version
-(``sha256_torch.sha256d_search_buffer``); for a CUDA device it launches the
-kernel or raises — it never falls back.
+``sha256d_search`` and ``sha256d_verify`` launch on a CUDA stream without
+synchronizing and return the device ``uint32[2k+3]`` buffer (an int32
+tensor, read back as uint32). Given the CPU they run the plain versions
+(``sha256_torch.sha256d_search_buffer``, ``sha256_torch.sha256d_verify_step``);
+given CUDA they launch the kernel or raise — they never fall back.
 """
 
 from __future__ import annotations
@@ -39,11 +42,12 @@ JOB_WORDS = 22
 # winners, so 16 slots overflow only at test-easy targets
 K_WINNERS = 16
 
-SOURCE = "sha256d_search.cu"
+SOURCE = "sha256d.cu"
 HEADERS = ("sha256_device.cuh",)
 
-# kernel launches through the wrapper (not the plain version's calls)
-launches = LaunchCounter()
+# kernel launches through the wrappers (not the plain versions' calls)
+launches = LaunchCounter()          # B1: sha256d_search
+verify_launches = LaunchCounter()   # B2: sha256d_verify
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -96,6 +100,11 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.otedama_sha256d_search.restype = ctypes.c_int
+        lib.otedama_sha256d_verify.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.otedama_sha256d_verify.restype = ctypes.c_int
         lib.otedama_cuda_error_string.argtypes = [ctypes.c_int]
         lib.otedama_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -148,52 +157,139 @@ def sha256d_search(job_words, *, batch: int, k: int = K_WINNERS, device,
     return out
 
 
-def ops_per_nonce() -> int:
-    """32-bit integer operations per nonce on the kernel's hot path,
-    counted over its dataflow as the hardware can issue it: a rotate or
-    shift is one instruction, any 3-input logic function (ch, maj, a
-    3-way xor) one LOP3, and a sum of T terms ceil((T-1)/2) IADD3s, with
-    all constant terms folded into one. Values that depend on the job
-    words alone are loop-invariant and cost nothing. The filter adds the
-    nonce add, bswap, the running min and the compare. This is the op
-    count behind ``bound_ms``.
+def check_verify_inputs(words20: torch.Tensor, limbs: torch.Tensor,
+                        count: int) -> None:
+    """Shapes and devices a verify wrapper takes: ``[B, 20]`` and
+    ``[B, 8]`` on one device, ``0 <= count <= B``."""
+    if (words20.dim() != 2 or words20.shape[1] != 20 or limbs.dim() != 2
+            or limbs.shape[1] != 8 or limbs.shape[0] != words20.shape[0]):
+        raise ValueError(f"need words20 [B, 20] and limbs [B, 8], got "
+                         f"{tuple(words20.shape)} and {tuple(limbs.shape)}")
+    if words20.device != limbs.device:
+        raise ValueError(f"words20 on {words20.device}, limbs on {limbs.device}")
+    if not 0 <= count <= words20.shape[0]:
+        raise ValueError(f"count {count} outside [0, {words20.shape[0]}]")
 
-    In the trace, ``True`` marks a nonce-dependent value and ``False`` a
-    constant or job-word value."""
-    n = 0
 
-    def op(*xs):
-        nonlocal n
+def sha256d_verify(words20: torch.Tensor, limbs: torch.Tensor, count: int, *,
+                   k: int = K_WINNERS,
+                   stream: torch.cuda.Stream | None = None) -> torch.Tensor:
+    """Validate the first ``count`` shares in ONE launch (kernel B2):
+    ``words20`` int32 ``[B, 20]`` (the uint32 bit patterns of each header's
+    big-endian words, ``sha256_torch.headers_to_words``), ``limbs`` int32
+    ``[B, 8]`` (each share's target limbs, most-significant-first). Rows
+    past ``count`` take no part. Returns the ``uint32[2k+3]`` failure
+    buffer as an int32 tensor on the inputs' device (``unpack_winner_buffer``
+    after reading it back: failing lane offsets, their top limbs, the true
+    failure count — past ``k`` an overflow — and the min top limb).
+
+    Given CPU tensors it runs the plain version; given CUDA tensors it
+    transposes them word-major on the device and launches on ``stream``
+    (default: the current stream) without synchronizing, or raises."""
+    check_verify_inputs(words20, limbs, count)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    device = words20.device
+    if device.type == "cpu":
+        return sha256_torch.sha256d_verify_step(words20, limbs, count - 1, k=k)
+    if device.type != "cuda":
+        raise ValueError(f"sha256d_verify runs on cuda or cpu, not {device}")
+    if words20.dtype != torch.int32 or limbs.dtype != torch.int32:
+        raise ValueError("words20 and limbs must be int32 tensors")
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    lib = load_library()
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        # word-major, so a warp's loads of one word are one line
+        w = words20[:count].t().contiguous()
+        t = limbs[:count].t().contiguous()
+        out = torch.empty(winner_buffer_words(k), dtype=torch.int32,
+                          device=device)
+        rc = lib.otedama_sha256d_verify(w.data_ptr(), t.data_ptr(), count, k,
+                                        out.data_ptr(), stream.cuda_stream)
+    if rc != 0:
+        msg = lib.otedama_cuda_error_string(rc).decode()
+        raise RuntimeError(f"sha256d_verify launch failed: CUDA error {rc} "
+                           f"({msg})")
+    verify_launches.add()
+    return out
+
+
+class _OpTrace:
+    """Counts 32-bit integer operations over a hash's dataflow as the
+    hardware can issue it: a rotate or shift is one instruction, any
+    3-input logic function (ch, maj, a 3-way xor) one LOP3, and a sum of T
+    terms ceil((T-1)/2) IADD3s, with all constant terms folded into one.
+    A traced value is ``True`` when it varies per lane and ``False`` when
+    it is a constant or a launch-invariant value, which costs nothing."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+    def op(self, *xs) -> bool:
         if any(xs):
-            n += 1
+            self.n += 1
         return any(xs)
 
-    def add(*xs):
-        nonlocal n
+    def add(self, *xs) -> bool:
         terms = sum(xs) + (0 if all(xs) else 1)
         if any(xs):
-            n += terms // 2  # == ceil((terms - 1) / 2)
+            self.n += terms // 2  # == ceil((terms - 1) / 2)
         return any(xs)
 
-    def sig(x):  # three funnel shifts (or shifts) and one LOP3
-        return op(op(x), op(x), op(x))
+    def sig(self, x) -> bool:  # three funnel shifts (or shifts) and one LOP3
+        return self.op(self.op(x), self.op(x), self.op(x))
 
-    def rounds(s, w, count, a_until):
-        # the a produced by round r is first read by round r+4's e, so in
-        # the truncated compression rounds >= 57 need no a at all
+    def rounds(self, s, w, count: int, a_until: int = 64) -> list:
+        """``count`` rounds of one compression; the a produced by round r
+        is first read by round r+4's e, so a truncated compression can stop
+        computing a at ``a_until``."""
         for i in range(count):
             if i >= 16:
-                w[i % 16] = add(w[i % 16], sig(w[(i - 15) % 16]),
-                                w[(i - 7) % 16], sig(w[(i - 2) % 16]))
-            t1 = add(s[7], sig(s[4]), op(s[4], s[5], s[6]), False, w[i % 16])
+                w[i % 16] = self.add(w[i % 16], self.sig(w[(i - 15) % 16]),
+                                     w[(i - 7) % 16], self.sig(w[(i - 2) % 16]))
+            t1 = self.add(s[7], self.sig(s[4]), self.op(s[4], s[5], s[6]),
+                          False, w[i % 16])
             a = False
             if i < a_until:
-                a = add(t1, sig(s[0]), op(s[0], s[1], s[2]))
-            s = [a, s[0], s[1], s[2], add(s[3], t1), s[4], s[5], s[6]]
+                a = self.add(t1, self.sig(s[0]), self.op(s[0], s[1], s[2]))
+            s = [a, s[0], s[1], s[2], self.add(s[3], t1), s[4], s[5], s[6]]
         return s
 
-    s = rounds([False] * 8, [False] * 3 + [True] + [False] * 12, 64, 64)
-    d = [add(False, x) for x in s]  # feed-forward of the midstate
-    s = rounds([False] * 8, d + [False] * 8, 61, 57)
-    add(False, s[4])  # digest word 7 = IV[7] + e
-    return n + 4
+
+def ops_per_nonce() -> int:
+    """32-bit integer operations per nonce on the search kernel's hot path
+    (``_OpTrace``): values that depend on the job words alone are
+    loop-invariant and cost nothing, and the truncated second compression
+    stops at digest word 7. The filter adds the nonce add, bswap, the
+    running min and the compare. This is the op count behind B1's
+    ``bound_ms``."""
+    t = _OpTrace()
+    s = t.rounds([False] * 8, [False] * 3 + [True] + [False] * 12, 64)
+    d = [t.add(False, x) for x in s]  # feed-forward of the midstate
+    s = t.rounds([False] * 8, d + [False] * 8, 61, 57)
+    t.add(False, s[4])  # digest word 7 = IV[7] + e
+    return t.n + 4
+
+
+def verify_ops_per_share() -> int:
+    """32-bit integer operations per share of the verify kernel (B2),
+    counted as ``ops_per_nonce`` counts them: three whole compressions
+    (header block 1 from the IV, header block 2 with its constant padding
+    words, the digest block from the IV), their feed-forwards, then 8
+    bswaps, a compare and a select per limb, and the min. This is the op
+    count behind B2's ``bound_ms``."""
+    t = _OpTrace()
+    s1 = [t.add(False, x) for x in t.rounds([False] * 8, [True] * 16, 64)]
+    s2 = t.rounds(list(s1), [True] * 4 + [False] * 12, 64)
+    d = [t.add(a, b) for a, b in zip(s1, s2)]
+    s3 = t.rounds([False] * 8, d + [False] * 8, 64)
+    for x in s3:
+        t.add(False, x)
+    return t.n + 8 + 2 * 8 + 1
+
+
+def verify_bytes_per_share() -> int:
+    """Bytes one share moves: its 20 header words and 8 target limbs, read
+    once (the 2k+3-word buffer is per launch)."""
+    return (20 + 8) * 4

@@ -1,12 +1,14 @@
-"""The plain PyTorch version of the sha256d nonce search.
+"""The plain PyTorch version of the sha256d nonce search and share check.
 
 Counterpart of ``otedama_tpu/kernels/sha256_jax.py`` (``compress``,
 ``sha256d_from_midstate``, ``digest_words_to_compare_order``, ``le256``,
-``compact_winners``) and of ``otedama_tpu/runtime/mesh.py``
-``_local_winners_jnp`` (``sha256d_search_buffer``: the kernel's exact
-``uint32[2k+3]`` winner-buffer contract, computed from the 22 job words).
+``compact_winners``; for share validation ``sha256d_words80``,
+``compact_failures``, ``sha256d_verify_step``, ``headers_to_words``) and of
+``otedama_tpu/runtime/mesh.py`` ``_local_winners_jnp``
+(``sha256d_search_buffer``: the kernel's exact ``uint32[2k+3]``
+winner-buffer contract, computed from the 22 job words).
 
-It is the yardstick the CUDA kernel (``sha256_cuda``) is held against on
+It is the yardstick the CUDA kernels (``sha256_cuda``) are held against on
 the card, and what the CPU tests run. It repeats the arithmetic in eager
 tensor ops and is no yardstick of speed.
 
@@ -27,7 +29,8 @@ from otedama_tpu_torch.utils.sha256_host import SHA256_IV, SHA256_K
 
 M32 = 0xFFFFFFFF
 
-# calls of sha256d_search_buffer: chip_smoke shows the main path makes none
+# calls of sha256d_search_buffer and sha256d_verify_step: chip_smoke shows
+# that the card's main paths make none
 calls = LaunchCounter()
 
 
@@ -177,3 +180,52 @@ def sha256d_search_buffer(job_words, *, batch: int, k: int, device,
              + [n & M32, 0, best])
     out = np.array(words, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(out).to(device)
+
+
+# -- share validation: the verify kernel's plain version ----------------------
+
+def sha256d_words80(cols20):
+    """sha256d of N distinct 80-byte headers across the lane axis: both
+    header blocks and the digest block run per lane (no midstate is shared).
+    ``cols20``: 20 int64 lane tensors, the big-endian header words. Returns
+    the 8 big-endian digest words per lane."""
+    zero = torch.zeros_like(cols20[0])
+    pad1 = zero + 0x80000000
+    iv = tuple(zero + v for v in SHA256_IV)
+    st = compress(iv, list(cols20[:16]))
+    d = compress(st, list(cols20[16:20]) + [pad1] + [zero] * 10 + [zero + 640])
+    return compress(iv, list(d) + [pad1] + [zero] * 6 + [zero + 256])
+
+
+def compact_failures(passes, h0, last: int, k: int):
+    """The verify buffer ``[fail_off[k] | fail_limb[k] | n_fails, 0,
+    min_h0]``: ``compact_winners`` of the FAILING lanes, with lane offsets
+    in the nonce slots. Lanes past ``last`` (the last in-range offset; -1
+    for none) take part in neither the failures nor the min top limb."""
+    offs = torch.arange(passes.numel(), dtype=torch.int64, device=passes.device)
+    rng = offs <= last
+    return compact_winners(~passes & rng, torch.where(rng, h0, M32), offs, k)
+
+
+def sha256d_verify_step(words20, limbs, last: int, *, k: int):
+    """Share validation of ``[B, 20]`` big-endian header words against
+    per-lane ``[B, 8]`` target limbs (most-significant-first): each lane's
+    sha256d compared exactly with its own target, failures compacted by
+    ``compact_failures``. Takes int32 bit patterns or int64 words; returns
+    the ``uint32[2k+3]`` buffer as an int32 tensor on the inputs' device.
+    The plain version of the verify kernel (``sha256_cuda.sha256d_verify``)."""
+    calls.add()
+    words = words20.to(torch.int64) & M32
+    lb = limbs.to(torch.int64) & M32
+    h = digest_words_to_compare_order(sha256d_words80(words.unbind(1)))
+    passes = le256(h, lb.unbind(1))
+    buf = compact_failures(passes, h[0], int(last), k)
+    return (buf - ((buf >> 31) << 32)).to(torch.int32)
+
+
+def headers_to_words(headers) -> np.ndarray:
+    """Pack N 80-byte headers into the ``[N, 20]`` uint32 big-endian word
+    array the verify steps take."""
+    raw = b"".join(headers) if isinstance(headers, list) else \
+        np.ascontiguousarray(headers).tobytes()
+    return np.frombuffer(raw, dtype=">u4").astype(np.uint32).reshape(-1, 20)

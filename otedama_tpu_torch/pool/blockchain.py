@@ -1,6 +1,7 @@
-"""Block templates and the in-process mock chain (counterpart of
-``otedama_tpu/pool/blockchain.py`` ``BlockTemplate``, ``SubmitOutcome`` and
-``MockChainClient``, without the reference's fault-injection gates).
+"""Block templates, the chain-client protocol and the in-process mock chain
+(counterpart of ``otedama_tpu/pool/blockchain.py`` ``BlockTemplate``,
+``SubmitOutcome``, ``BlockchainClient`` and ``MockChainClient``, without
+the reference's fault-injection gates).
 
 The mock is a regtest-style chain: it hands out templates, verifies
 submitted headers against its own nbits, and advances height.
@@ -12,6 +13,7 @@ import dataclasses
 import logging
 import struct
 import time
+from typing import Protocol
 
 from otedama_tpu_torch.kernels import target as tgt
 from otedama_tpu_torch.utils.sha256_host import sha256d
@@ -37,6 +39,16 @@ class SubmitOutcome:
     accepted: bool
     block_hash: str = ""
     reason: str = ""
+
+
+class BlockchainClient(Protocol):
+    """What the pool needs from a chain node (reference iface
+    internal/pool/block_submitter.go:52-58)."""
+
+    async def get_block_template(self) -> BlockTemplate: ...
+    async def submit_block(self, header: bytes) -> SubmitOutcome: ...
+    async def get_confirmations(self, block_hash: str) -> int: ...
+    async def get_network_difficulty(self) -> float: ...
 
 
 class MockChainClient:

@@ -1,0 +1,432 @@
+"""Device-batched share validation — the device INGEST path (counterpart of
+``otedama_tpu/runtime/validate.py``).
+
+Miner-submitted shares, already assembled into batches by the
+group-commit ledger (``PoolManager.on_share_batch``), are verified on the
+card as ONE dispatch per algorithm group instead of one host hash per
+share.
+
+Contract (the search path's winner buffers, run in reverse): every tier's
+verify kernels hash N submitted 80-byte headers, compare each lane EXACTLY
+(256-bit lexicographic) against its OWN share target, and compact the rare
+FAILURES — honest shares were mined to target, so a failing lane is
+Byzantine input or corruption — into one fixed ``uint32[2k+3]`` buffer
+(``sha256_cuda.unpack_winner_buffer`` layout, lane offsets in the nonce
+slots). One read-back per batch; a failure count past ``k`` (a heavily
+Byzantine batch) is settled on the card: the same kernels run the batch
+again with a table of that many slots.
+
+The device tiers: the sha256d family on the verify kernel B2
+(``sha256_cuda.sha256d_verify``), scrypt on the verify prologue, the ROMix
+kernel B5 and the verify epilogue (``scrypt_cuda.scrypt_verify``). x11 and
+ethash validate on the host until their slices (ROADMAP A9, A10) land.
+
+Safety rails, in the same shape as the device SEARCH path's:
+
+- **Crossover**: batches under ``min_batch`` shares go straight to the
+  host (``pow_host.pow_digest`` on the validation executor) — device
+  dispatch overhead loses below a measured size.
+- **Tripwire**: a seeded sample of every device batch is re-verified
+  through the independent host oracle.
+- **Fault point** ``validation.verify`` (error / corrupt / delay on the
+  device verdict): an injected error quarantines the device path for
+  ``quarantine_seconds`` and every batch host-validates meanwhile; an
+  injected corrupt verdict is caught by the tripwire, which degrades the
+  batch to host validation and quarantines, as the reference does.
+
+Only the injected faults take that way out. The kernels' libraries are
+built and loaded when a ``cuda`` backend is constructed, and that raises;
+a kernel that fails to launch raises out of ``verify_batch``; and a
+tripwire mismatch that no fault injected means the kernels are wrong,
+and raises too. No kernel fault ever hides behind a host verdict.
+
+Where the port differs from the reference: ``device`` names a torch
+device (``"cuda"``, the default, or ``"cpu"`` for the plain versions)
+and ``None`` means host only (the reference's ``device=False``); nothing
+pads batches to compiled shapes (there is no compile cache to protect);
+the reference's ``rolled`` and ``x11_chain`` knobs are gone; a device
+error, an overflow and a tripwire mismatch take the ways above, where the
+reference host-validates all three.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import dataclasses
+import logging
+import random
+import threading
+import time
+
+import numpy as np
+import torch
+
+from otedama_tpu_torch.kernels import scrypt_cuda as scc
+from otedama_tpu_torch.kernels import sha256_cuda as sc
+from otedama_tpu_torch.kernels import sha256_torch
+from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.utils import faults
+from otedama_tpu_torch.utils import pow_host
+from otedama_tpu_torch.utils.histogram import LatencyHistogram
+
+log = logging.getLogger("otedama.runtime.validate")
+
+_VERIFY_FAULTS = faults.DEVICE
+
+# device dispatch pays off only past this batch size: on an H100 a whole
+# verify_batch call on the card (read-back and tripwire included) first
+# beats the host executor at 32 shares, for sha256d and scrypt alike
+# (chip_smoke.py phase 17); platform-dependent, hence the knob
+VALIDATE_MIN_BATCH = 32
+
+# share-count distribution bounds for the batch-size histogram (the
+# latency histogram class is unit-agnostic: bounds are just numbers)
+_BATCH_BOUNDS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                 512.0, 1024.0, 4096.0)
+
+# algorithms with a device verify tier. Deliberately NARROW: "sha256"
+# (single hash) has no device twin and must not fall into the sha256d
+# kernel; x11 and ethash join with their slices (ROADMAP A9, A10)
+_SHA256D_ALGOS = frozenset({"sha256d", "sha256double", "bitcoin"})
+_SCRYPT_ALGOS = frozenset({"scrypt", "litecoin"})
+_DEVICE_ALGOS = _SHA256D_ALGOS | _SCRYPT_ALGOS
+
+
+@dataclasses.dataclass(frozen=True)
+class ShareCheck:
+    """One share's validation claim: the exact 80 bytes the miner
+    hashed, the target its credited difficulty demands, and the
+    algorithm/height that pick the digest function."""
+
+    header: bytes
+    target: int
+    algorithm: str = "sha256d"
+    block_number: int = 0
+
+
+class ValidationBackend:
+    """Batches share-validation work onto the card, with a host
+    crossover, a sampled host-oracle tripwire, and the rails of the
+    ``validation.verify`` fault point.
+
+    One instance serves every producer in the process: the stats and
+    histograms are one surface, and the quarantine state is shared — a
+    device that corrupted a ledger batch must not keep verifying other
+    producers' batches.
+
+    Device dispatches run on executor threads, several at once. They all
+    go to the backend's one CUDA stream, each reading back into its own
+    pinned buffer; the scrypt tier's V scratch is shared, so a lock holds
+    one dispatch's scrypt launches together while they are enqueued (the
+    wait for the read-back is outside it), as ``ScryptCudaBackend`` does.
+    """
+
+    def __init__(self, *, min_batch: int = VALIDATE_MIN_BATCH,
+                 tripwire_rate: float = 0.05, k: int | None = None,
+                 quarantine_seconds: float = 60.0,
+                 device: str | torch.device | None = "cuda", seed: int = 0):
+        self.min_batch = max(1, int(min_batch))
+        self.tripwire_rate = float(tripwire_rate)
+        self.k = int(k or sc.K_WINNERS)
+        if self.k < 1:
+            raise ValueError(f"winner_depth must be >= 1, got {self.k}")
+        self.quarantine_seconds = float(quarantine_seconds)
+        self.device = None if device is None else torch.device(device)
+        self.stream = None
+        if self.device is not None:
+            if self.device.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "ValidationBackend: torch.cuda.is_available() is "
+                        "False — no CUDA device for the verify kernels "
+                        "(pass device='cpu' for the plain versions, or "
+                        "None for host validation)")
+                if self.device.index is None:
+                    self.device = torch.device("cuda",
+                                               torch.cuda.current_device())
+                # build and load now: a kernel that does not build must
+                # raise here, not quarantine on the first batch
+                scc.load_library()
+                self.stream = torch.cuda.Stream(device=self.device)
+            elif self.device.type != "cpu":
+                raise ValueError(f"ValidationBackend runs on cuda or cpu, "
+                                 f"not {self.device}")
+        # the scrypt tier's (x, V) scratch, grown to the largest batch
+        self._scrypt_scratch: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._enqueue_lock = threading.Lock()
+        # deterministic tripwire sampling: chaos runs replay exactly
+        self._rng = random.Random(seed)
+        self._quarantined_until = 0.0
+        self._lock = threading.Lock()
+        self.stats = {
+            "validated_device": 0,
+            "validated_host": 0,
+            "device_batches": 0,
+            "host_batches": 0,
+            "crossover_batches": 0,   # host because under min_batch
+            "device_errors": 0,
+            "overflows": 0,           # failure table overflowed (> k)
+            "tripwire_checks": 0,
+            "tripwire_mismatches": 0,
+            "rejects": 0,             # shares that failed validation
+        }
+        self.batch_sizes = LatencyHistogram(bounds=_BATCH_BOUNDS)
+        self.device_seconds = LatencyHistogram()
+        self.host_seconds = LatencyHistogram()
+        # min top compare limb ever observed (best-share telemetry, the
+        # unit the search kernels report)
+        self.best_hash_hi = 0xFFFFFFFF
+
+    # -- device state ---------------------------------------------------------
+
+    def device_ok(self) -> bool:
+        return (self.device is not None
+                and time.monotonic() >= self._quarantined_until)
+
+    def _quarantine(self) -> None:
+        self._quarantined_until = (
+            time.monotonic() + self.quarantine_seconds)
+
+    # -- the host oracle ------------------------------------------------------
+
+    @staticmethod
+    def _host_verdict(check: ShareCheck) -> bool:
+        digest = pow_host.pow_digest(
+            check.header, check.algorithm,
+            block_number=check.block_number,
+        )
+        return tgt.hash_meets_target(digest, check.target)
+
+    async def _verify_host(self, checks: list[ShareCheck]) -> list[bool]:
+        """Exact per-share host validation, CONCURRENT on the validation
+        executor."""
+        t0 = time.monotonic()
+        loop = asyncio.get_running_loop()
+        pool = pow_host.validation_executor()
+        verdicts = list(await asyncio.gather(*(
+            loop.run_in_executor(pool, self._host_verdict, c)
+            for c in checks
+        )))
+        self.host_seconds.observe(time.monotonic() - t0)
+        with self._lock:
+            self.stats["host_batches"] += 1
+            self.stats["validated_host"] += len(checks)
+        return verdicts
+
+    # -- the device kernels ---------------------------------------------------
+
+    def _scratch_for(self, lanes: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The scrypt tier's (x, V) scratch for ``lanes`` lanes; called
+        under the enqueue lock, on the backend's stream."""
+        have = self._scrypt_scratch
+        if have is None or have[0].numel() < scc.ROW_WORDS * lanes:
+            self._scrypt_scratch = None   # free the old one first
+            self._scrypt_scratch = (
+                torch.empty(scc.ROW_WORDS * lanes, dtype=torch.int32,
+                            device=self.device),
+                torch.empty(scc.scratch_words(lanes), dtype=torch.int32,
+                            device=self.device))
+        return self._scrypt_scratch
+
+    def _device_buffer(self, algorithm: str, checks: list[ShareCheck],
+                       k: int) -> np.ndarray:
+        """One device dispatch: the algorithm tier's verify kernels over
+        the batch. Returns the ``uint32[2k+3]`` failure buffer. Runs on an
+        executor thread (it waits for the read-back); a kernel that fails
+        raises."""
+        if algorithm not in _DEVICE_ALGOS:
+            # defensive: verify_batch's _DEVICE_ALGOS routing makes this
+            # unreachable — an unknown algorithm must fail loudly, never
+            # silently run the wrong kernel
+            raise ValueError(f"no device verify tier for {algorithm!r}")
+        n = len(checks)
+        words = sha256_torch.headers_to_words([c.header for c in checks])
+        limbs = np.stack([tgt.target_to_limbs(c.target) for c in checks])
+        scrypt = algorithm in _SCRYPT_ALGOS
+        cuda = self.device.type == "cuda"
+        with contextlib.ExitStack() as ctx:
+            if cuda:
+                if scrypt:
+                    # the V scratch is shared: one dispatch enqueues at a time
+                    ctx.enter_context(self._enqueue_lock)
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self.stream))
+            w = torch.from_numpy(words.view(np.int32)).to(self.device,
+                                                           non_blocking=True)
+            t = torch.from_numpy(limbs.view(np.int32)).to(self.device,
+                                                          non_blocking=True)
+            if scrypt:
+                buf = scc.scrypt_verify(
+                    w, t, n, k=k, scratch=self._scratch_for(n) if cuda else None,
+                    stream=self.stream)
+            else:
+                buf = sc.sha256d_verify(w, t, n, k=k, stream=self.stream)
+            if not cuda:
+                return buf.numpy().view(np.uint32)
+            host = torch.empty(buf.shape, dtype=torch.int32, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        done.synchronize()
+        return host.numpy().view(np.uint32)
+
+    async def _verify_device_group(
+        self, algorithm: str, checks: list[ShareCheck]
+    ) -> list[bool] | None:
+        """One algorithm group through the device path. Returns verdicts,
+        or None when an injected fault sends the group to the host."""
+        loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
+        try:
+            d = faults.hit("validation.verify", algorithm, _VERIFY_FAULTS)
+        except Exception:
+            with self._lock:
+                self.stats["device_errors"] += 1
+            self._quarantine()
+            return None
+        corrupt = False
+        if d is not None:
+            if d.delay:
+                await asyncio.sleep(d.delay)
+            corrupt = d.corrupt
+        buf = await loop.run_in_executor(
+            None, self._device_buffer, algorithm, checks, self.k)
+        offs, _, n_fails, min_h0 = sc.unpack_winner_buffer(buf, self.k)
+        if n_fails > self.k:
+            # heavily Byzantine batch: the compact table cannot name every
+            # failure — run the batch again with a slot for each of them
+            with self._lock:
+                self.stats["overflows"] += 1
+            buf = await loop.run_in_executor(
+                None, self._device_buffer, algorithm, checks, n_fails)
+            offs, _, again, min_h0 = sc.unpack_winner_buffer(buf, n_fails)
+            if again != n_fails:
+                raise RuntimeError(
+                    f"device validation counted {n_fails} then {again} "
+                    f"failures in one {algorithm} batch of {len(checks)}")
+        verdicts = [True] * len(checks)
+        for s in range(n_fails):
+            off = int(offs[s])
+            if off < len(verdicts):
+                verdicts[off] = False
+        if corrupt:
+            # injected wrong-result mode: the device "answered" with
+            # every verdict inverted — exactly what the tripwire exists
+            # to catch
+            verdicts = [not v for v in verdicts]
+
+        # sampled host-oracle tripwire (the search path's winner re-check
+        # applied to ingest): per batch, at least one share re-verified host-side
+        # — CONCURRENTLY on the executor (the cost is one slowest hash,
+        # not the sum), and BEFORE the device path's success accounting
+        # so a discarded batch never inflates the device/host split
+        if self.tripwire_rate > 0:
+            sample = [i for i in range(len(checks))
+                      if self._rng.random() < self.tripwire_rate]
+            if not sample:
+                sample = [self._rng.randrange(len(checks))]
+            with self._lock:
+                self.stats["tripwire_checks"] += len(sample)
+            pool = pow_host.validation_executor()
+            host_oks = await asyncio.gather(*(
+                loop.run_in_executor(pool, self._host_verdict, checks[i])
+                for i in sample
+            ))
+            mismatch = False
+            for i, host_ok in zip(sample, host_oks):
+                if host_ok != verdicts[i]:
+                    mismatch = True
+                    log.error(
+                        "validation tripwire: device verdict %s for "
+                        "share %d (%s) but host oracle says %s — device "
+                        "result corrupt", verdicts[i], i, algorithm, host_ok,
+                    )
+            if mismatch:
+                with self._lock:
+                    self.stats["tripwire_mismatches"] += 1
+                if not corrupt:
+                    raise RuntimeError(
+                        f"validation tripwire: the {algorithm} verify "
+                        f"kernels disagree with the host oracle on a batch "
+                        f"of {len(checks)}")
+                self._quarantine()
+                return None
+        self.device_seconds.observe(time.monotonic() - t0)
+        with self._lock:
+            self.stats["device_batches"] += 1
+            self.stats["validated_device"] += len(checks)
+            self.best_hash_hi = min(self.best_hash_hi, int(min_h0))
+        return verdicts
+
+    # -- public API -----------------------------------------------------------
+
+    async def verify_batch(self, checks: list[ShareCheck]) -> list[bool]:
+        """Validate one batch of submitted shares. Returns one verdict
+        per share (True = the header's PoW digest meets its target),
+        bit-identical to the host oracle's answer by construction —
+        the device compare is exact and every degradation path ends at
+        ``pow_host``."""
+        if not checks:
+            return []
+        self.batch_sizes.observe(float(len(checks)))
+        verdicts: list[bool | None] = [None] * len(checks)
+        # group by algorithm: each group is one device dispatch
+        # (mixed-algorithm batches cross chain boundaries legitimately)
+        groups: dict[str, list[int]] = {}
+        for i, c in enumerate(checks):
+            groups.setdefault((c.algorithm or "sha256d").lower(), []).append(i)
+        for algo, idxs in groups.items():
+            sub = [checks[i] for i in idxs]
+            group_verdicts: list[bool] | None = None
+            device_eligible = algo in _DEVICE_ALGOS
+            if (device_eligible and self.device_ok()
+                    and len(sub) >= self.min_batch):
+                group_verdicts = await self._verify_device_group(algo, sub)
+            elif device_eligible and len(sub) < self.min_batch:
+                with self._lock:
+                    self.stats["crossover_batches"] += 1
+            if group_verdicts is None:
+                group_verdicts = await self._verify_host(sub)
+            for i, v in zip(idxs, group_verdicts):
+                verdicts[i] = v
+        rejects = sum(1 for v in verdicts if not v)
+        if rejects:
+            with self._lock:
+                self.stats["rejects"] += rejects
+        return [bool(v) for v in verdicts]
+
+    # -- reporting ------------------------------------------------------------
+
+    def executor_queue_depth(self) -> int:
+        """Pending work on the shared validation executor — the
+        host-path backpressure signal (a deep queue means host
+        validation is the wall again)."""
+        pool = pow_host._VALIDATION_POOL
+        if pool is None:
+            return 0
+        try:
+            return pool._work_queue.qsize()
+        except Exception:
+            return 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            stats = dict(self.stats)
+        return {
+            **stats,
+            "device_ok": self.device_ok(),
+            "min_batch": self.min_batch,
+            "executor_queue_depth": self.executor_queue_depth(),
+            "best_hash_hi": self.best_hash_hi,
+            "batch_size": {
+                "count": self.batch_sizes.count,
+                "avg": round(
+                    self.batch_sizes.sum / self.batch_sizes.count, 2)
+                if self.batch_sizes.count else 0.0,
+                "p50": self.batch_sizes.quantile(0.5),
+                "p99": self.batch_sizes.quantile(0.99),
+            },
+            "device_seconds": self.device_seconds.snapshot(),
+            "host_seconds": self.host_seconds.snapshot(),
+        }

@@ -1,14 +1,46 @@
-"""Host-side (scalar) proof-of-work digests (counterpart of
-``otedama_tpu/utils/pow_host.py``, sha256d and scrypt only).
+"""Host-side (scalar) proof-of-work digests, keyed by algorithm name
+(counterpart of ``otedama_tpu/utils/pow_host.py`` for the algorithms the
+port carries: the sha256d family, sha256 and scrypt).
 
 Every winner a device backend reports is re-hashed here, one header at a
-time, before it becomes a share: the card's kernels must agree with these
-bit for bit, and the tests hold them to it.
+time, before it becomes a share, and share validation's host path and
+tripwire (``runtime/validate.py``) judge shares with ``pow_digest``: the
+card's kernels must agree with these bit for bit, and the tests hold them
+to it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
+import threading
+
+# dedicated pool for share validation: the event loop's DEFAULT executor
+# also carries every engine backend.search dispatch and the device
+# validation dispatches, so host validation gets its own small pool
+_VALIDATION_POOL: concurrent.futures.ThreadPoolExecutor | None = None
+_VALIDATION_POOL_LOCK = threading.Lock()
+
+
+def validation_executor() -> concurrent.futures.ThreadPoolExecutor:
+    global _VALIDATION_POOL
+    if _VALIDATION_POOL is None:
+        with _VALIDATION_POOL_LOCK:
+            if _VALIDATION_POOL is None:
+                _VALIDATION_POOL = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="share-validate"
+                )
+                # registered AFTER concurrent.futures' own exit handler,
+                # so this runs FIRST (atexit is LIFO): cancel queued
+                # validations so interpreter exit waits for at most the
+                # in-flight digests
+                import atexit
+
+                atexit.register(
+                    _VALIDATION_POOL.shutdown, wait=False,
+                    cancel_futures=True,
+                )
+    return _VALIDATION_POOL
 
 
 def sha256d(data: bytes) -> bytes:
@@ -21,3 +53,24 @@ def scrypt_1024_1_1(data: bytes) -> bytes:
     return hashlib.scrypt(
         data, salt=data, n=1024, r=1, p=1, maxmem=64 * 1024 * 1024, dklen=32
     )
+
+
+def pow_digest(header: bytes, algorithm: str = "sha256d",
+               block_number: int = 0) -> bytes:
+    """The 32-byte PoW digest a miner's share claims for this header.
+    ``block_number`` is taken for the reference's signature (ethash picks
+    its epoch from it); no algorithm the port carries reads it."""
+    algorithm = (algorithm or "sha256d").lower()
+    if algorithm in ("sha256d", "sha256double", "bitcoin"):
+        return sha256d(header)
+    if algorithm == "sha256":
+        return hashlib.sha256(header).digest()
+    if algorithm in ("scrypt", "litecoin"):
+        return scrypt_1024_1_1(header)
+    if algorithm in ("x11", "dash"):
+        raise ValueError(f"no host PoW digest for {algorithm!r} in the port "
+                         "yet (x11 comes with ROADMAP A9)")
+    if algorithm in ("ethash", "etchash"):
+        raise ValueError(f"no host PoW digest for {algorithm!r} in the port "
+                         "yet (ethash comes with ROADMAP A10)")
+    raise ValueError(f"no host PoW digest for algorithm {algorithm!r}")

@@ -175,7 +175,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"otedama_tpu_torch.kernels.cuda_build",
             "otedama_tpu_torch.kernels.scrypt_cuda",
             "otedama_tpu_torch.kernels.scrypt_torch",
-            "otedama_tpu_torch.utils.pow_host"} <= set(modules)
+            "otedama_tpu_torch.utils.pow_host",
+            "otedama_tpu_torch.runtime.validate",
+            "otedama_tpu_torch.pool.manager",
+            "otedama_tpu_torch.db.database"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

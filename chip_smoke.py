@@ -7,25 +7,30 @@ and the pool ledger's share validation through the entry points a user
 calls, and checks every phase; any failure exits non-zero. Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
-   opcode mix of the hot kernels' SASS (``cuobjdump -sass``);
+   registers and spills of the hot kernels (``-Xptxas -v``) and their hot
+   loops' SASS by integer pipe (``cuobjdump -sass``);
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
-   (few winners, target at a lane's hash and +-1, a ragged count, a
-   window that wraps 2^32, an empty window, table overflow, the backend's
+   (few winners, target at a lane's hash and +-1, ragged counts — 1, 3,
+   one past a multiple of the block's nonce tile, 2^20 + 77 —, a window
+   that wraps 2^32, an empty window, table overflow, the backend's
    bisecting overflow rescan, and the main path's 2^31-lane launch);
 4. main path: ``Application`` in solo mode on the card against a
-   difficulty-1 mock chain until it accepts 3 blocks, through the
+   difficulty-1 mock chain until it accepts 3 blocks and 5 s have
+   passed (its rate from the engine's start to the 3rd block, over the
+   whole window, and steady between drained calls), through the
    engine's default 2^31-nonce grouped launches; every block is re-hashed
    with hashlib, the kernel must have launched and the plain version not;
 5. times: the kernel's time per 2^31-nonce launch (CUDA events, after
-   warm-up) beside its bound;
+   warm-up) beside its bound, with the SM clock and power draw sampled,
+   and over 12 distinct difficulty-1 jobs (about half hold a winner);
 6. scrypt known answer: digests of a fixed header through the ROMix
    kernel, and the whole search kernel path's winners, against
    hashlib.scrypt;
 7. scrypt BlockMix kernels B3 and B4 against the plain version at the
    main path's shape [32, chunk];
 8. scrypt ROMix kernel B5 against the plain version, full V and half_v,
-   at the main path's shape;
+   at the main path's shape and at 2^18 - 5, 4,099, 37 and 1 lanes;
 9. scrypt search buffers against the plain version (n <= k: every word;
    n > k: count and min; a clamp at ``last`` mid-chunk; a base near 2^32;
    a scratch off the card refused before any launch);
@@ -38,7 +43,9 @@ calls, and checks every phase; any failure exits non-zero. Phases:
    ``romix`` tier for one chunk, and three searches in flight on one
    backend (sharing its V) give what they give one by one;
 12. scrypt times per chunk (CUDA events, median of rounds) for the
-   ``romix``, ``romix-half`` and ``blockmix`` tiers beside their bounds;
+   ``romix``, ``romix-half`` and ``blockmix`` tiers beside their bounds,
+   with the SM clock and power draw sampled, and the ``romix`` tier at
+   2^16 and 2^17 lanes;
 13. share validation known answer: the genesis header through the verify
    kernel B2 passes at bits 0x1d00ffff and at its digest and fails one
    below; a boundary batch (targets v, v-1, v+1) against hashlib;
@@ -49,8 +56,8 @@ calls, and checks every phase; any failure exits non-zero. Phases:
    rows, an empty batch;
 15. the scrypt verify path (verify prologue, ROMix B5, verify epilogue)
    against the plain version and hashlib at the ledger's shape (1,024
-   lanes, k = 16, 4 planted failures across blocks) and at 256 lanes
-   with boundary targets;
+   lanes, k = 16, 4 planted failures across blocks) and at 256, 37 and 1
+   lanes with boundary targets;
 16. main path: ``PoolManager.on_share_batch`` with a ``ValidationBackend``
    on the card (min_batch 128, tripwire 5%): 64 flushes of 1,024 sha256d
    shares from 4,096 workers and 4 of 1,024 scrypt shares, from two
@@ -79,13 +86,13 @@ import hashlib
 import json
 import logging
 import os
-import re
 import struct
 import subprocess
 import sys
 import time
 import traceback
 
+T0 = time.monotonic()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -93,6 +100,7 @@ SEED = 20261016
 MAIN_BATCH = 1 << 31          # the engine's launch: CudaBackend.preferred_batch
 GENESIS_HASH = "000000000019d6689c085ae165831e934ff763ae46a2a6c172b3f1b60a8ce26f"
 BLOCKS_NEEDED = 3
+MAIN_PATH_MIN_S = 5.0         # the solo sha256d window: 3 blocks and this long
 MAIN_PATH_BOUND_S = 180.0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 # 32-bit integer instructions an SM can issue per clock, thread by thread:
@@ -148,45 +156,6 @@ def median_ms(fn, stream, reps: int, rounds: int = 3):
     return sorted(round_ms)[rounds // 2], round_ms
 
 
-def sass_mix(library: str, kernel: str) -> dict[str, dict[str, int]]:
-    """Opcode counts of the compiled SASS of each function of ``library``
-    whose name holds ``kernel`` (``cuobjdump -sass``; static counts, which
-    the unrolled hash rounds dominate)."""
-    from otedama_tpu_torch.kernels.cuda_build import nvcc
-
-    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", library], capture_output=True,
-                         text=True, timeout=120)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
-    mixes, counts = {}, None
-    for line in out.stdout.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            counts = mixes.setdefault(head.group(1), {}) \
-                if kernel in head.group(1) else None
-            continue
-        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)",
-                      line)
-        if counts is not None and op:
-            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
-    check(mixes, f"no function {kernel!r} in {library}")
-    return mixes
-
-
-def print_sass_mix(library: str, kernel: str) -> None:
-    """One line per function: its integer share on the FMA pipe (IMAD)
-    and the ALU pipe (IADD3, LOP3, SHF), and its most frequent opcodes."""
-    for fn, counts in sass_mix(library, kernel).items():
-        total = sum(counts.values())
-        imad = counts.get("IMAD", 0)
-        alu = sum(counts.get(o, 0) for o in ("IADD3", "LOP3", "SHF"))
-        top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
-        print(f"   SASS {fn}: {total} instructions; IMAD {imad} "
-              f"({imad / total:.1%}, FMA pipe), IADD3+LOP3+SHF {alu} "
-              f"({alu / total:.1%}, ALU pipe); "
-              + ", ".join(f"{o} {c}" for o, c in top), flush=True)
-
-
 class ErrorCount(logging.Handler):
     """Counts the ERROR records of a logger (a device winner that fails the
     backend's host re-check is logged as one)."""
@@ -197,6 +166,57 @@ class ErrorCount(logging.Handler):
 
     def emit(self, record):
         self.n += 1
+
+
+class HashWatch:
+    """The instants at which the engine's hash count moves (it moves once
+    a drained device call, by that call's hashes) and at which its job
+    changes, polled every 2 ms on the engine's own loop. Between the
+    first and the last move the rate is the engine's steady rate: no
+    start-up, and no call half done at either end."""
+
+    def __init__(self):
+        self.engine, self.moves, self.switches, self._task = None, [], [], None
+
+    async def _poll(self):
+        last, serial = self.engine.stats.hashes, self.engine._job_serial
+        while True:
+            h, now = self.engine.stats.hashes, time.monotonic()
+            if self.engine._job_serial != serial:
+                serial = self.engine._job_serial
+                self.switches.append(now)
+            if h != last:
+                self.moves.append((now, h))
+                last = h
+            await asyncio.sleep(0.002)
+
+    def start(self, engine):
+        self.engine = engine
+        self._task = asyncio.get_running_loop().create_task(self._poll())
+
+    def stop(self):
+        self._task.cancel()
+
+    def summary(self) -> tuple[float, str]:
+        """(steady H/s, its description): the rate, the gaps between
+        drained calls, and for a short window each gap (* where the job
+        changed within it)"""
+        check(len(self.moves) >= 3, "the engine's hash count barely moved")
+        (t0, h0), (t1, h1) = self.moves[0], self.moves[-1]
+        rate = (h1 - h0) / (t1 - t0)
+        spans = list(zip(self.moves, self.moves[1:]))
+        gaps = sorted(b - a for (a, _), (b, _) in spans)
+        listed = ""
+        if len(spans) <= 24:
+            listed = "; gaps " + ", ".join(
+                f"{(b - a) * 1e3:.1f}"
+                + ("*" if any(a < t <= b for t in self.switches) else "")
+                for (a, _), (b, _) in spans)
+        return rate, (f"steady {rate:.1f} H/s: {h1 - h0} hashes in "
+                      f"{t1 - t0:.3f} s between the first and the last of "
+                      f"{len(self.moves)} drained calls; gaps median "
+                      f"{gaps[len(gaps) // 2] * 1e3:.1f} ms, max "
+                      f"{gaps[-1] * 1e3:.1f} ms{listed}")
 
 
 def scrypt_value(header80: bytes) -> int:
@@ -246,18 +266,25 @@ def scrypt_main_path(chain_nbits: int, window_s: float):
                               for t in app._tasks),
                       "a background task failed before the engine started")
                 await asyncio.sleep(0.05)
+            watch.start(app.engine)
             h0, t0 = app.engine.stats.hashes, time.monotonic()
-            await asyncio.sleep(window_s)
+            with Sampler(1.0) as sampled:
+                await asyncio.sleep(window_s)
             h1, t1 = app.engine.stats.hashes, time.monotonic()
-            return h1 - h0, t1 - t0
+            watch.stop()
+            return h1 - h0, t1 - t0, sampled.summary()
         finally:
             await app.stop()
 
+    from otedama_tpu_torch.kernels.card import Sampler
+
     torch.cuda.reset_peak_memory_stats()
-    hashes, seconds = asyncio.run(run())
+    watch = HashWatch()
+    hashes, seconds, clocks = asyncio.run(run())
     peak = torch.cuda.max_memory_allocated()
     backend = next(iter(app.engine.backends.values()))
     result = dict(hashes=hashes, seconds=seconds, shares=shares,
+                  steady=watch.summary(), clocks=clocks,
                   outcomes=outcomes, total_hashes=app.engine.stats.hashes,
                   backend=backend.name, chunk=backend.chunk,
                   batch=app.engine.planned_batch(backend),
@@ -276,6 +303,7 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     from otedama_tpu_torch.kernels import scrypt_cuda as scc
     from otedama_tpu_torch.kernels import scrypt_torch as sct
     from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels.card import Sampler
     from otedama_tpu_torch.runtime.search import (
         SCRYPT_CUDA_CHUNK,
         JobConstants,
@@ -354,8 +382,10 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     # -- 8. B5 -------------------------------------------------------------------
     phase(f"8 scrypt ROMix kernel B5 vs plain version, [32, {chunk}]")
     X = words(32, chunk)
-    for half in (False, True):
+    ragged = chunk - 5      # lanes are independent: the plain version's
+    for half in (False, True):  # first `ragged` lanes hold that launch too
         a = scc.romix(X, half_v=half)
+        r = scc.romix(X[:, :ragged].contiguous(), half_v=half)
         sync()
         torch.cuda.empty_cache()
         t0 = time.monotonic()
@@ -364,11 +394,15 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
         t = (time.monotonic() - t0) * 1e3
         if not half:
             plain_ms["B5"] = t
-        e = err(a, b)
+        e = max(err(a, b), err(r, b[:, :ragged]))
+        for lanes in (1, 37, 4099):     # not multiples of a quad, warp or block
+            e = max(e, err(scc.romix(X[:, :lanes].contiguous(), half_v=half),
+                           sct.romix(X[:, :lanes].contiguous(), half_v=half)))
         max_err["B5"] = max(max_err["B5"], e)
         check(e == 0, f"B5 half_v={half}: kernel != plain version")
-        print(f"   half_v={half}: equal; plain version {t / 1e3:.1f} s", flush=True)
-        del a, b
+        print(f"   half_v={half}: equal at {chunk}, {ragged}, 4099, 37 and 1 "
+              f"lanes; plain version {t / 1e3:.1f} s at {chunk}", flush=True)
+        del a, b, r
         torch.cuda.empty_cache()
 
     # -- 9. search buffers ------------------------------------------------------------
@@ -451,7 +485,8 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     e2e = main["hashes"] / main["seconds"]
     print(f"   backend {main['backend']}, chunk {main['chunk']}, batch "
           f"{main['batch']}: {main['hashes']} hashes in {main['seconds']:.2f} s"
-          f" = {e2e:.1f} H/s end to end; {len(main['shares'])} shares, all "
+          f" = {e2e:.1f} H/s end to end; {main['steady'][1]}; "
+          f"{main['clocks']}; {len(main['shares'])} shares, all "
           f"re-hashed with hashlib.scrypt; block candidates submitted "
           f"{len(main['outcomes'])}: accepted {accepted}, refused {refused} "
           f"(the mock chain checks blocks by sha256d); host re-check "
@@ -520,11 +555,12 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
     lb = tgt.target_to_limbs(tgt.bits_to_target(SCRYPT_NBITS))
     tier_ms = {}
     for tier in scc.TIERS:
-        tier_ms[tier], rounds = median_ms(
-            lambda: scc.scrypt_search(h19, 0, lb, chunk - 1, n=chunk, k=k,
-                                      device=dev, tier=tier, stream=stream,
-                                      out=out, scratch=(xs, scratch)),
-            stream, 2)
+        with Sampler() as sampled:
+            tier_ms[tier], rounds = median_ms(
+                lambda: scc.scrypt_search(h19, 0, lb, chunk - 1, n=chunk, k=k,
+                                          device=dev, tier=tier, stream=stream,
+                                          out=out, scratch=(xs, scratch)),
+                stream, 2)
         half = tier == "romix-half"
         ops_ms = scc.ops_per_hash(half) * chunk / int_ops_per_s * 1e3
         bytes_ms = scc.v_bytes_per_hash(half) * chunk / HBM_BYTES_PER_S * 1e3
@@ -538,7 +574,24 @@ def scrypt_phases(dev, card: str, int_ops_per_s: float) -> list[dict]:
               f"int32 ops/hash"
               + (", half of the mix steps recomputing a row" if half else "")
               + f"; bytes {bytes_ms:.2f} ms: {scc.v_bytes_per_hash(half)} B "
-              f"of V/hash)", flush=True)
+              f"of V/hash); {sampled.summary()}", flush=True)
+    # the romix tier sustained as the main path runs it, chunks back to
+    # back for ~5 s: under that load the card may hold a lower clock (its
+    # power limit) than in the short rounds above
+    with Sampler(0.5) as sampled:
+        sustained, _ = median_ms(
+            lambda: scc.scrypt_search(h19, 0, lb, chunk - 1, n=chunk, k=k,
+                                      device=dev, stream=stream, out=out,
+                                      scratch=(xs, scratch)), stream, 180, 1)
+    steady, window = main["steady"][0], main["hashes"] / main["seconds"]
+    rounds_rate = chunk / tier_ms["romix"] * 1e3
+    print(f"   search, romix, 180 chunks back to back: {sustained:.2f} ms per "
+          f"chunk = {chunk / sustained * 1e3:.0f} H/s; {sampled.summary()}; "
+          f"the main path's rate (phase 10) from the engine's start is "
+          f"{window / rounds_rate:.1%} of the rounds' rate and "
+          f"{window / (chunk / sustained * 1e3):.1%} of this one, its steady "
+          f"rate {steady / rounds_rate:.1%} and "
+          f"{steady / (chunk / sustained * 1e3):.1%}", flush=True)
     for lanes in (1 << 16, 1 << 17, 1 << 18):   # the chunk sweep
         t, _ = median_ms(
             lambda: scc.scrypt_search(h19, 0, lb, lanes - 1, n=lanes, k=k,
@@ -754,7 +807,8 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
     check(int(a[32]) == 0 and int(a[34]) == full, "empty batch buffer")
 
     # -- 15. the scrypt verify path ----------------------------------------------
-    phase("15 scrypt verify path vs plain version and hashlib, 1,024 and 256 lanes")
+    phase("15 scrypt verify path vs plain version and hashlib, 1,024, 256, 37 "
+          "and 1 lanes")
     scc.romix_launches.reset()
     # the ledger's shape: 1,024 lanes (four blocks of the epilogue), k = 16,
     # a planted failure in each block at v - 1, the rest at v + 1 or v
@@ -779,8 +833,21 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
                      128, scrypt=True)
     check(a[:85].tolist() == list(range(1, 256, 3)) and int(a[256]) == 85
           and int(a[258]) == int(hl[:, 0].min()), "scrypt verify vs hashlib")
-    check(scc.romix_launches.value == 2, "the scrypt verify path ran no ROMix kernel")
     print("   the 85 failures and the min top limb equal hashlib's", flush=True)
+    for count in (1, 37):       # less than a warp's lanes, and ragged
+        headers = rng.integers(0, 256, (count, 80), dtype=np.uint8)
+        hl = limbs_of_digests(scrypt_values(headers))
+        pattern = np.array([0, -1, 1])[np.arange(count) % 3]
+        a = versus_plain(f"scrypt, {count} lanes at v, v-1, v+1",
+                         st.headers_to_words(headers), boundary(hl, pattern),
+                         count, 16, scrypt=True)
+        want = list(range(1, count, 3))
+        check(a[:len(want)].tolist() == want and int(a[32]) == len(want)
+              and int(a[34]) == int(hl[:, 0].min()),
+              f"scrypt verify vs hashlib, {count} lanes")
+        print(f"   {count} lanes: the {len(want)} failures and the min top limb "
+              "equal hashlib's", flush=True)
+    check(scc.romix_launches.value == 4, "the scrypt verify path ran no ROMix kernel")
 
     # -- 16. main path: the pool ledger ------------------------------------------
     phase("16 main path: PoolManager.on_share_batch -> ValidationBackend on the card")
@@ -1072,10 +1139,12 @@ def main() -> int:
 
     from otedama_tpu_torch.app import Application
     from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.kernels import cuda_build
     from otedama_tpu_torch.kernels import scrypt_cuda as scc
     from otedama_tpu_torch.kernels import sha256_cuda as sc
     from otedama_tpu_torch.kernels import sha256_torch as st
     from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels.card import Sampler
     from otedama_tpu_torch.pool.blockchain import MockChainClient
     from otedama_tpu_torch.runtime.search import CudaBackend, JobConstants
 
@@ -1142,12 +1211,11 @@ def main() -> int:
     for info in (sc.build_info, scc.build_info):
         print(f"   {info['library']}: nvcc {info.get('seconds', 0.0):.1f} s",
               flush=True)
-        for line in info.get("ptxas", "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"   ptxas: {line.strip()}", flush=True)
-    print_sass_mix(sc.build_info["library"], "search_kernel")
-    print_sass_mix(sc.build_info["library"], "verify_kernel")
-    print_sass_mix(scc.build_info["library"], "romix_kernel")
+    for info, kernel in ((sc.build_info, "search_kernel"),
+                         (sc.build_info, "verify_kernel"),
+                         (scc.build_info, "romix_kernel")):
+        for line in cuda_build.kernel_report(info, kernel):
+            print(f"   {line}", flush=True)
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -1202,6 +1270,11 @@ def main() -> int:
     ragged = (1 << 20) + 77
     compare("ragged count", random_job_words(int(rng.integers(1 << 32)), ragged,
                                              [1 << 14] + [full] * 7), ragged)
+    # counts that leave a thread with no nonce, and one past a multiple of
+    # the block's tile (one nonce a thread of a block a step)
+    for count in (1, 3, sc.SEARCH_BLOCK_NONCES * 1021 + 1):
+        compare(f"count {count}", random_job_words(
+            int(rng.integers(1 << 32)), count, [1 << 31] + [full] * 7), 1 << 20)
     compare("nonce wraps 2^32", random_job_words((1 << 32) - 1234, None,
                                                  [1 << 15] + [full] * 7), 1 << 18)
     b = compare("count=0 (empty)", random_job_words(5, 0, [full] * 8), 4096)
@@ -1263,18 +1336,28 @@ def main() -> int:
                       "a background task failed before the engine started")
                 await asyncio.sleep(0.05)
             t_start = time.monotonic()
-            while len(chain.submitted) < BLOCKS_NEEDED:
+            watch.start(app.engine)
+            at_blocks = None
+            while (len(chain.submitted) < BLOCKS_NEEDED
+                   or time.monotonic() < t_start + MAIN_PATH_MIN_S):
                 check(time.monotonic() < t_end,
                       f"only {len(chain.submitted)} blocks in "
                       f"{MAIN_PATH_BOUND_S:.0f} s")
                 await asyncio.sleep(0.05)
-            return time.monotonic() - t_start, app.engine.stats.hashes
+                if at_blocks is None and len(chain.submitted) >= BLOCKS_NEEDED:
+                    at_blocks = (time.monotonic() - t_start,
+                                 app.engine.stats.hashes)
+            watch.stop()
+            return (time.monotonic() - t_start, app.engine.stats.hashes,
+                    at_blocks)
         finally:
             await app.stop()
 
     sc.launches.reset()
     st.calls.reset()
-    seconds, hashes = asyncio.run(run_main_path())
+    watch = HashWatch()
+    seconds, hashes, (blocks_s, blocks_hashes) = asyncio.run(run_main_path())
+    steady_rate, steady_text = watch.summary()
     main_launches = sc.launches.value
     main_plain_calls = st.calls.value
     chain_target = tgt.bits_to_target(0x1D00FFFF)
@@ -1287,9 +1370,13 @@ def main() -> int:
     check(main_launches > 0, "main path launched no kernel")
     check(main_plain_calls == 0, f"main path called the plain version "
           f"{main_plain_calls} times")
-    print(f"   {len(chain.submitted)} blocks, {hashes} hashes in {seconds:.2f} s"
-          f" = {hashes / seconds / 1e9:.3f} GH/s end to end; kernel launches "
-          f"{main_launches}, plain-version calls {main_plain_calls}", flush=True)
+    print(f"   from the engine's start to the {BLOCKS_NEEDED}rd block: "
+          f"{blocks_hashes} hashes in {blocks_s:.2f} s = "
+          f"{blocks_hashes / blocks_s / 1e9:.3f} GH/s end to end; over the "
+          f"whole window {len(chain.submitted)} blocks, {hashes} hashes in "
+          f"{seconds:.2f} s = {hashes / seconds / 1e9:.3f} GH/s; {steady_text};"
+          f" kernel launches {main_launches}, plain-version calls "
+          f"{main_plain_calls}", flush=True)
 
     # -- 5. times ---------------------------------------------------------------
     phase("5 kernel time per 2^31-nonce launch")
@@ -1299,24 +1386,49 @@ def main() -> int:
     reps, rounds = 5, 3
     sc.sha256d_search(jw, batch=MAIN_BATCH, device=dev, stream=stream, out=out)
     round_ms = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        for _ in range(reps):
-            sc.sha256d_search(jw, batch=MAIN_BATCH, device=dev, stream=stream,
-                              out=out)
-        stop.record(stream)
-        stop.synchronize()
-        round_ms.append(start.elapsed_time(stop) / reps)
+    with Sampler() as sampled:
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(reps):
+                sc.sha256d_search(jw, batch=MAIN_BATCH, device=dev,
+                                  stream=stream, out=out)
+            stop.record(stream)
+            stop.synchronize()
+            round_ms.append(start.elapsed_time(stop) / reps)
     kernel_ms = sorted(round_ms)[rounds // 2]
+    kernel_rate = MAIN_BATCH / kernel_ms * 1e3
     print(f"   {rounds} rounds of {reps} launches, ms per launch: "
-          + ", ".join(f"{t:.2f}" for t in round_ms), flush=True)
+          + ", ".join(f"{t:.2f}" for t in round_ms) + f"; {sampled.summary()}",
+          flush=True)
     ops = sc.ops_per_nonce()
     int_ops_per_s = props.multi_processor_count * INT32_LANES_PER_SM * clock_mhz * 1e6
     ops_ms = ops * MAIN_BATCH / int_ops_per_s * 1e3
     bytes_ms = (sc.JOB_WORDS + sc.winner_buffer_words(k)) * 4 / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    # the same launch over distinct difficulty-1 jobs, as the main path
+    # gives them: about half of them hold a winner, whose lane escalates
+    jobs = [random_job_words(0, None, tgt.target_to_limbs(chain_target))
+            for _ in range(12)]
+    with torch.cuda.stream(stream):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        winners = []
+        for jw_ in jobs:
+            sc.sha256d_search(jw_, batch=MAIN_BATCH, device=dev, stream=stream,
+                              out=out)
+            winners.append(out[2 * k].clone())
+        stop.record(stream)
+        stop.synchronize()
+    jobs_ms = start.elapsed_time(stop) / len(jobs)
+    print(f"   {len(jobs)} difficulty-1 jobs, {sum(int(w) for w in winners)} "
+          f"winners: {jobs_ms:.2f} ms per launch; the main path's rate "
+          f"(phase 4) is {blocks_hashes / blocks_s / kernel_rate:.1%} of the "
+          f"kernel's from the engine's start to the {BLOCKS_NEEDED}rd block, "
+          f"{hashes / seconds / kernel_rate:.1%} over the whole window and "
+          f"{steady_rate / kernel_rate:.1%} steady", flush=True)
     print(f"   kernel {kernel_ms:.2f} ms = {MAIN_BATCH / kernel_ms / 1e6:.3f} GH/s;"
           f" bound {bound_ms:.2f} ms = {MAIN_BATCH / bound_ms / 1e6:.3f} GH/s "
           f"({ops} int32 ops/nonce over {props.multi_processor_count} SMs x "
@@ -1348,6 +1460,8 @@ def main() -> int:
     b5["max_abs_err"] = max(b5["max_abs_err"], verify_err)
     kernels.append(b2_record)
 
+    print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
+          f"since the script started; {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

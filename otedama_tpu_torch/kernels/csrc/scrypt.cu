@@ -21,23 +21,42 @@
 // What bounds it. One Salsa20/8 is 4 double rounds x 32 (add, rotate, xor)
 // + 16 adds; one BlockMix two of them plus 32 XORs; ROMix 2,048 BlockMixes
 // plus 1,024 x 32 XORs: ~1.74 M int32 ops per hash, against 256 KiB of V
-// written once and read once. At 132 SMs x 128 integer instructions a
-// clock (ALU and FMA pipes together) the ops take less time than HBM
-// needs for the bytes; `half_v` writes half the rows and trades them for
-// ~25% more ops.
-// The design keeps the operations on registers and the bytes coalesced:
-//   - one thread per lane, X's 32 words in registers for the whole ROMix,
-//     Salsa fully unrolled on 16 registers, rotates as __funnelshift_l;
+// written once and read once. Counted at 132 SMs x 128 integer
+// instructions a clock the ops take less time than HBM needs for the
+// bytes, but the rotates and XORs (576 of a lane-step's 864 ops) issue on
+// the 64-lane ALU pipe alone, and with them ROMix is bound by the ALU
+// pipe on this card once its memory traffic is well formed. `half_v`
+// writes half the rows and trades them for ~25% more ops; since the
+// quads of a warp split on the parity of their row, a warp pays the
+// recomputing BlockMix on almost every mix step.
+// The design of romix_kernel:
+//   - four threads (a quad) a lane: thread q holds column q of each half
+//     of X in Salsa20/8's diagonal layout, so the column round is its own
+//     quarter round and the row round exchanges three words by __shfl_sync
+//     each way. 47 registers a thread instead of 96 for a whole X, and a
+//     lane's 2,048 dependent steps are spread over four threads;
 //   - V in global memory (128 KiB per lane cannot stay in shared memory
-//     at useful occupancy), laid out [row][lane][32 words]: a thread's row
-//     is one 128-byte line, moved with eight 16-byte vector accesses, and
-//     a warp's fill-pass writes are 4 KiB contiguous;
+//     at useful occupancy), laid out [row][lane][32 words] with each row
+//     in the quad's order: a quad moves a row as one whole 128-byte line,
+//     two 16-byte accesses a thread, and a warp's fill-pass writes are
+//     1 KiB contiguous. The one-thread-a-lane design wrote each row as
+//     eight 16-byte stores a thread, a warp's store touching 32 lines 128
+//     bytes apart; its fill pass alone took about as long as this whole
+//     kernel. V's footprint does not matter: regions of 8 lanes (a lane's
+//     rows 1 KiB apart rather than lanes x 128 bytes) ran no faster;
+//   - blocks of 128 threads (32 lanes). A batch as small as the ledger's
+//     1,024 shares takes one lane's serial latency however it is spread:
+//     32-thread blocks, on all 132 SMs rather than 32, ran no faster;
 //   - 64-bit index arithmetic: rows x lanes x 32 words passes 2^31;
 //   - X in and out word-major [32, lanes] (word w of all lanes contiguous),
 //     the layout of the TPU kernels' refs, so the loads are coalesced;
 //   - the search's winners, as in sha256d.cu: an exact 256-bit
 //     compare per lane, slots by atomicAdd, the min top limb through a
 //     block reduce and one atomicMin per block, a finalize sort by offset.
+// blockmix_kernel (B3, B4: one BlockMix a launch, bound by its 256 or
+// 384 bytes a lane in and out) stays one thread a lane, X's 32 words in
+// registers, Salsa fully unrolled on 16 registers, word-major loads and
+// stores coalesced across the warp.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,8 +65,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // blockmix, prologue, epilogue
-constexpr int kRomixThreads = 128;  // romix: ~100 registers a thread
+constexpr int kThreads = 256;          // blockmix, prologue, epilogue
+constexpr int kRomixThreads = 128;     // romix: 32 lanes a block
 constexpr int kN = 1024;
 
 struct ScryptParams {
@@ -101,23 +120,6 @@ __device__ __forceinline__ void blockmix(uint32_t x[32]) {
   salsa8(x + 16);
 }
 
-__device__ __forceinline__ void store_row(uint4* row, const uint32_t x[32]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    row[q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-}
-
-__device__ __forceinline__ void load_row(const uint4* row, uint32_t x[32]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const uint4 v = row[q];
-    x[4 * q] = v.x;
-    x[4 * q + 1] = v.y;
-    x[4 * q + 2] = v.z;
-    x[4 * q + 3] = v.w;
-  }
-}
-
 // out = BlockMix(x ^ v) (v may be null: BlockMix(x)), word-major [32, lanes].
 // out may be x itself: a thread reads its lane whole before writing it.
 __global__ void __launch_bounds__(kThreads)
@@ -138,41 +140,111 @@ __global__ void __launch_bounds__(kThreads)
   for (int w = 0; w < 32; ++w) out[w * lanes + lane] = b[w];
 }
 
-// The whole ROMix of each lane, X in place (word-major [32, lanes]); v is
-// the scratch, [rows][lanes][8 x uint4] with rows = 1024 (512 for kHalf).
+// Salsa20/8 of one 16-word half, spread over the four threads of a quad.
+// Thread q holds column q of the state in the diagonal layout, words
+// (5q, 5q + 4, 5q + 8, 5q + 12) mod 16 as (a, b, c, d): the column round is
+// then each thread's own quarter round, and the row round needs row q's
+// words 4q + (q + 1..3) % 4, which are d of thread q + 1, c of q + 2 and b
+// of q + 3 — three shuffles there and three back. `mask` names the quads
+// that take part (whole quads only).
+__device__ __forceinline__ void salsa8_quad(uint32_t s[4], unsigned mask,
+                                            int q) {
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    b ^= rotl(a + d, 7);
+    c ^= rotl(b + a, 9);
+    d ^= rotl(c + b, 13);
+    a ^= rotl(d + c, 18);
+    uint32_t rb = __shfl_sync(mask, d, q + 1, 4);
+    uint32_t rc = __shfl_sync(mask, c, q + 2, 4);
+    uint32_t rd = __shfl_sync(mask, b, q + 3, 4);
+    rb ^= rotl(a + rd, 7);
+    rc ^= rotl(rb + a, 9);
+    rd ^= rotl(rc + rb, 13);
+    a ^= rotl(rd + rc, 18);
+    d = __shfl_sync(mask, rb, q + 3, 4);
+    c = __shfl_sync(mask, rc, q + 2, 4);
+    b = __shfl_sync(mask, rd, q + 1, 4);
+  }
+  s[0] += a;
+  s[1] += b;
+  s[2] += c;
+  s[3] += d;
+}
+
+// BlockMix r=1 of a quad's hash: x0 and x1 are this thread's words of B0
+// and B1, in the same diagonal positions, so the XORs between the halves
+// stay in the thread.
+__device__ __forceinline__ void blockmix_quad(uint32_t x0[4], uint32_t x1[4],
+                                              unsigned mask, int q) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x0[i] ^= x1[i];
+  salsa8_quad(x0, mask, q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x1[i] ^= x0[i];
+  salsa8_quad(x1, mask, q);
+}
+
+// The whole ROMix of each lane, X in place (word-major [32, lanes]), four
+// threads a lane. v is the scratch, [row][lane][8 x uint4] with rows =
+// 1024 (512 for kHalf). Inside a row, thread q's B0 words are uint4 q and
+// its B1 words uint4 4 + q: a quad moves a row as one line.
 template <bool kHalf>
 __global__ void __launch_bounds__(kRomixThreads)
     romix_kernel(uint32_t* xio, uint4* v, unsigned long long lanes) {
   const unsigned long long lane =
-      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const unsigned long long row_stride = lanes * 8;  // uint4 per row
-  uint4* vl = v + lane * 8;
-  uint32_t x[32];
+      (static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
+       threadIdx.x) >> 2;
+  const int q = threadIdx.x & 3;
+  const bool active = lane < lanes;
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, active);
+  if (!active) return;
+  const unsigned long long row_stride = 8 * lanes;  // uint4s
+  uint4* vl = v + lane * 8 + q;
+  uint32_t x0[4], x1[4];
 #pragma unroll
-  for (int w = 0; w < 32; ++w) x[w] = xio[w * lanes + lane];
-#pragma unroll 1
-  for (int i = 0; i < kN; ++i) {
-    if (!kHalf || (i & 1) == 0)
-      store_row(vl + static_cast<unsigned long long>(kHalf ? i >> 1 : i) *
-                         row_stride,
-                x);
-    blockmix(x);
+  for (int i = 0; i < 4; ++i) {
+    const int w = (5 * q + 4 * i) & 15;
+    x0[i] = xio[w * lanes + lane];
+    x1[i] = xio[(16 + w) * lanes + lane];
   }
 #pragma unroll 1
   for (int i = 0; i < kN; ++i) {
-    const uint32_t j = x[16] & (kN - 1);  // Integerify: first word of B1
-    uint32_t vj[32];
-    load_row(vl + static_cast<unsigned long long>(kHalf ? j >> 1 : j) *
-                      row_stride,
-             vj);
-    if (kHalf && (j & 1)) blockmix(vj);  // V[j] = BlockMix(V[j - 1])
+    if (!kHalf || (i & 1) == 0) {
+      uint4* row = vl + static_cast<unsigned long long>(kHalf ? i >> 1 : i) *
+                            row_stride;
+      row[0] = make_uint4(x0[0], x0[1], x0[2], x0[3]);
+      row[4] = make_uint4(x1[0], x1[1], x1[2], x1[3]);
+    }
+    blockmix_quad(x0, x1, mask, q);
+  }
+#pragma unroll 1
+  for (int i = 0; i < kN; ++i) {
+    // Integerify: the first word of B1, held by thread 0 of the quad
+    const uint32_t j = __shfl_sync(mask, x1[0], 0, 4) & (kN - 1);
+    const uint4* row =
+        vl + static_cast<unsigned long long>(kHalf ? j >> 1 : j) * row_stride;
+    const uint4 r0 = row[0], r1 = row[4];
+    uint32_t v0[4] = {r0.x, r0.y, r0.z, r0.w};
+    uint32_t v1[4] = {r1.x, r1.y, r1.z, r1.w};
+    if (kHalf) {
+      const unsigned odd = __ballot_sync(mask, j & 1);
+      if (j & 1) blockmix_quad(v0, v1, odd, q);  // V[j] = BlockMix(V[j - 1])
+    }
 #pragma unroll
-    for (int w = 0; w < 32; ++w) x[w] ^= vj[w];
-    blockmix(x);
+    for (int w = 0; w < 4; ++w) {
+      x0[w] ^= v0[w];
+      x1[w] ^= v1[w];
+    }
+    blockmix_quad(x0, x1, mask, q);
   }
 #pragma unroll
-  for (int w = 0; w < 32; ++w) xio[w * lanes + lane] = x[w];
+  for (int i = 0; i < 4; ++i) {
+    const int w = (5 * q + 4 * i) & 15;
+    xio[w * lanes + lane] = x0[i];
+    xio[(16 + w) * lanes + lane] = x1[i];
+  }
 }
 
 // The 20 big-endian words of a lane's header: a search lane's are the 19
@@ -390,12 +462,13 @@ int otedama_scrypt_blockmix(const uint32_t* x, const uint32_t* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x[32, lanes] = ROMix(x) in place; v: scratch of 1024 (half_v: 512)
-// rows x lanes x 128 bytes.
+// x[32, lanes] = ROMix(x) in place, four threads a lane; v: scratch of
+// 1024 (half_v: 512) rows x 128
+// bytes a lane.
 int otedama_scrypt_romix(uint32_t* x, void* v, unsigned long long lanes,
                          int half_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = blocks_for(lanes, kRomixThreads);
+  const unsigned int blocks = blocks_for(4 * lanes, kRomixThreads);
   if (half_v)
     romix_kernel<true><<<blocks, kRomixThreads, 0, s>>>(
         x, static_cast<uint4*>(v), lanes);

@@ -12,16 +12,27 @@
 // min top compare limb over in-range lanes. Unused slots hold 0 in the
 // nonce half and 0xFFFFFFFF in the limb half.
 //
-// What bounds the search: integer ALU operations. Per nonce it runs ~120
-// SHA-256 rounds on 32-bit words and moves no memory (22 job words in as
-// kernel parameters, 2k+3 words out per launch). The design keeps
-// everything off the memory system and out of the hot loop that does not
-// have to be there:
-//   - the 22 job words ride in the constant bank as a by-value parameter,
-//     so a launch needs no host-to-device copy;
-//   - the first 3 rounds of the first compression and its first schedule
-//     words depend only on job words; they are loop-invariant in the
-//     grid-stride loop and the compiler hoists them;
+// What bounds the search: integer operations, and on this card the ALU
+// pipe among them. Per nonce it runs ~120 SHA-256 rounds on 32-bit words
+// and moves no memory (the job in as kernel parameters, 2k+3 words out
+// per launch). A round's logic — Sigma0, Sigma1 (three funnel-shift
+// rotates and a LOP3 each), ch and maj (a LOP3 each) — can only issue on
+// the SM's 64-lane ALU pipe; its adds can go to the 64-lane FMA pipe as
+// IMAD. Left to ptxas, ~88% of the loop sits on the ALU pipe and the FMA
+// pipe idles. The design:
+//   - the job's own work is hoisted by hand: sha256_cuda.search_params
+//     computes, once a launch on the host, rounds 0..2 of the first
+//     compression, round 3 but for its two adds of the nonce, K + W of
+//     the constant words W4..W17 and the job-only terms of W18..W33; they
+//     ride in the constant bank with the 22 job words as a by-value
+//     parameter (no host-to-device copy), so the loop starts at the first
+//     operation that depends on the nonce;
+//   - every add of the loop is written a * one + b, with one = 1 a launch
+//     parameter (ptxas folds a literal 1), and the schedule's right shifts
+//     as __umulhi by 2^29 and 2^22: IMAD and IMAD.HI on the FMA pipe, so
+//     the ALU pipe keeps only the logic (~63% of the loop); rounds 0..3
+//     of the second compression keep plain adds, so the IV's literal
+//     words fold;
 //   - the second compression stops at digest word 7 (rounds 61..63 and
 //     the dead a-chain of rounds 57..60 vanish), which is all the filter
 //     `bswap(d7) <= T0` needs — no false negatives, since a lexicographic
@@ -34,8 +45,11 @@
 //   - winners take slots with atomicAdd on the count (arbitrary order);
 //     a one-thread finalize launch sorts the <= k slots by offset.
 // Grid: one wave of persistent blocks (occupancy-sized), each thread
-// walking a grid-stride loop over 64-bit launch offsets — a window holds
-// up to 2^32 nonces, so its count does not fit in 32 bits.
+// walking nonces a grid's width apart with a 32-bit counter — a window
+// holds up to 2^32 nonces, so only each thread's count is computed in 64
+// bits, once. Each step of the loop ends with __syncwarp(): without it a
+// warp whose lane escalated stayed split for the rest of the launch, and
+// a launch with a winner ran up to twice as long.
 //
 // verify_kernel replaces `_verify_kernel` (reached through
 // `sha256d_verify_pallas`): N distinct 80-byte headers, each hashed twice
@@ -64,6 +78,7 @@
 // count, as in the reference.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "sha256_device.cuh"
@@ -71,7 +86,9 @@
 namespace {
 
 constexpr int kJobWords = 22;
-constexpr int kThreads = 256;
+constexpr int kHoistedWords = 43;  // sizeof(Hoisted) / 4
+constexpr int kThreads = 256;        // verify, init
+constexpr int kSearchThreads = 256;  // search: one nonce a thread a step
 
 struct JobParams {
   // [0:8] midstate, [8:11] header words 16..18, [11] nonce base,
@@ -82,72 +99,208 @@ struct JobParams {
 
 constexpr uint32_t kIV7 = 0x5BE0CD19u;
 
-// First compression: header block 2 (tail words, nonce, padding) from the
-// midstate, with feed-forward. Returns the 8 words of the first digest.
-__device__ __forceinline__ void first_hash(const JobParams& p, uint32_t nonce,
-                                           uint32_t d[8]) {
-  uint32_t w[16] = {p.w[8], p.w[9], p.w[10], nonce, 0x80000000u, 0, 0, 0,
-                    0,      0,      0,       0,     0,           0, 0, 640};
-  uint32_t s[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = p.w[i];
-  sha256_rounds<64>(s, w);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) d[i] = p.w[i] + s[i];
+// What a search launch computes once from its job words (sha256_cuda.
+// search_params, on the host), after the 22 job words themselves: the
+// first compression up to its first nonce-dependent operation, and the
+// job-only terms of the later schedule words.
+struct Hoisted {
+  uint32_t s3[8];   // state (a..h) after rounds 0..2 from the midstate
+  uint32_t a4, e4;  // a and e after round 3, less the nonce (W3)
+  uint32_t kw[14];  // K[i] + W[i] for i = 4..17 (W4..W15 padding, W16, W17)
+  uint32_t wc[16];  // W[i] for i = 18..33: the sum of its job-only terms
+  uint32_t one;     // 1: a * one + b is an IMAD (ptxas folds a literal 1)
+  uint32_t m29;     // 2^29: __umulhi(x, m29) = x >> 3, on the FMA pipe
+  uint32_t m22;     // 2^22: __umulhi(x, m22) = x >> 10
+};
+
+struct SearchParams {
+  JobParams job;
+  Hoisted h;
+};
+
+// The search's adds and the schedule's right shifts go to the FMA pipe as
+// IMAD and IMAD.HI; the rotates and the logic (SHF, LOP3) can only issue on
+// the ALU pipe, which they fill alone. fshr(x, 2^n) is x >> (32 - n).
+__device__ __forceinline__ uint32_t fadd(uint32_t a, uint32_t one, uint32_t b) {
+  return a * one + b;
+}
+__device__ __forceinline__ uint32_t fshr(uint32_t x, uint32_t m) {
+  return __umulhi(x, m);
 }
 
-// Digest word 7 of sha256d(header) only: word 7 = IV[7] + h after round 63,
-// and h after round 63 is the e produced by round 60. So the second
-// compression runs rounds 0..60 and returns IV[7] + s[4]; what only feeds
-// words 0..6 is dead code the compiler drops.
-__device__ __forceinline__ uint32_t sha256d_word7(const JobParams& p,
-                                                  uint32_t nonce) {
+// One round from round 4 on, every add as fadd; u = h + K[i] + W[i].
+__device__ __forceinline__ void round_f(uint32_t s[8], uint32_t u,
+                                        uint32_t one) {
+  const uint32_t t1 = fadd(big_sigma1(s[4]), one,
+                           fadd(ch(s[4], s[5], s[6]), one, u));
+  const uint32_t a =
+      fadd(big_sigma0(s[0]), one, fadd(maj(s[0], s[1], s[2]), one, t1));
+  s[7] = s[6];
+  s[6] = s[5];
+  s[5] = s[4];
+  s[4] = fadd(s[3], one, t1);
+  s[3] = s[2];
+  s[2] = s[1];
+  s[1] = s[0];
+  s[0] = a;
+}
+
+// Adds x into a running sum that may be empty (`have`, known at compile
+// time after unrolling), so no add of a zero is issued.
+__device__ __forceinline__ void accumulate(uint32_t& acc, bool& have,
+                                           uint32_t x, uint32_t one) {
+  acc = have ? fadd(x, one, acc) : x;
+  have = true;
+}
+
+// Which schedule words vary with the nonce: in the first compression W3
+// (the nonce) and W18 on; in the second the digest words W0..W7 and W16 on.
+__device__ __forceinline__ bool first_varies(int i) { return i == 3 || i >= 18; }
+__device__ __forceinline__ bool second_varies(int i) { return i < 8 || i >= 16; }
+
+// The second compression's constant words: padding and the 256-bit length.
+__device__ __forceinline__ uint32_t second_literal(int i) {
+  return i == 8 ? 0x80000000u : i == 15 ? 256u : 0u;
+}
+
+__device__ __forceinline__ uint32_t s0f(uint32_t x, const Hoisted& h) {
+  return rotr(x, 7) ^ rotr(x, 18) ^ fshr(x, h.m29);
+}
+__device__ __forceinline__ uint32_t s1f(uint32_t x, const Hoisted& h) {
+  return rotr(x, 17) ^ rotr(x, 19) ^ fshr(x, h.m22);
+}
+
+// Digest word 7 of sha256d(header) for nonce n, from the hoisted state:
+// the first compression runs from round 3's two nonce adds, the second
+// rounds 0..60 (word 7 = IV[7] + h after round 63 = IV[7] + the e of
+// round 60); what only feeds words 0..6 is dead code the compiler drops.
+__device__ __forceinline__ uint32_t sha256d_word7(const SearchParams& p,
+                                                  uint32_t n) {
+  const Hoisted& h = p.h;
+  const uint32_t one = h.one;
+  uint32_t s[8] = {h.a4 + n, h.s3[0], h.s3[1], h.s3[2],
+                   h.e4 + n, h.s3[4], h.s3[5], h.s3[6]};
+  uint32_t w[16];
+  w[3] = n;
+#pragma unroll
+  for (int i = 4; i < 64; ++i) {
+    if (i < 18) {
+      round_f(s, fadd(s[7], one, h.kw[i - 4]), one);
+      continue;
+    }
+    // W[i] = s1(W[i-2]) + W[i-7] + s0(W[i-15]) + W[i-16]: the terms that
+    // vary, onto the hoisted sum of the rest
+    uint32_t acc = 0;
+    bool have = i <= 33;
+    if (have) acc = h.wc[i - 18];
+    if (first_varies(i - 16)) accumulate(acc, have, w[(i - 16) & 15], one);
+    if (first_varies(i - 15)) accumulate(acc, have, s0f(w[(i - 15) & 15], h), one);
+    if (first_varies(i - 7)) accumulate(acc, have, w[(i - 7) & 15], one);
+    if (first_varies(i - 2)) accumulate(acc, have, s1f(w[(i - 2) & 15], h), one);
+    w[i & 15] = acc;
+    round_f(s, fadd(s[7], one, fadd(acc, one, kK[i])), one);
+  }
   uint32_t d[8];
-  first_hash(p, nonce, d);
-  uint32_t w[16] = {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
-                    0x80000000u, 0, 0, 0, 0, 0, 0, 256};
-  uint32_t s[8] = SHA256_IV_INIT;
-  sha256_rounds<61>(s, w);
-  return kIV7 + s[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = fadd(p.job.w[i], one, s[i]);
+
+  uint32_t t[8] = SHA256_IV_INIT;
+  uint32_t x[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = i < 8 ? d[i] : second_literal(i);
+#pragma unroll
+  for (int i = 0; i < 61; ++i) {
+    if (i >= 16) {
+      // literal terms fold into one constant; each varying term is an fadd
+      uint32_t lit = 0;
+      if (!second_varies(i - 16)) lit += second_literal(i - 16);
+      if (!second_varies(i - 15)) lit += small_sigma0(second_literal(i - 15));
+      if (!second_varies(i - 7)) lit += second_literal(i - 7);
+      if (!second_varies(i - 2)) lit += small_sigma1(second_literal(i - 2));
+      uint32_t acc = lit;
+      bool have = lit != 0;
+      if (second_varies(i - 16)) accumulate(acc, have, x[(i - 16) & 15], one);
+      if (second_varies(i - 15)) accumulate(acc, have, s0f(x[(i - 15) & 15], h), one);
+      if (second_varies(i - 7)) accumulate(acc, have, x[(i - 7) & 15], one);
+      if (second_varies(i - 2)) accumulate(acc, have, s1f(x[(i - 2) & 15], h), one);
+      x[i & 15] = acc;
+    }
+    if (i < 4) {
+      // the IV is literal: plain adds fold with it
+      const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
+                          kK[i] + x[i & 15];
+      const uint32_t t2 = big_sigma0(t[0]) + maj(t[0], t[1], t[2]);
+      t[7] = t[6];
+      t[6] = t[5];
+      t[5] = t[4];
+      t[4] = t[3] + t1;
+      t[3] = t[2];
+      t[2] = t[1];
+      t[1] = t[0];
+      t[0] = t1 + t2;
+    } else {
+      round_f(t, fadd(t[7], one, fadd(x[i & 15], one, kK[i])), one);
+    }
+  }
+  return kIV7 + t[4];
 }
 
 // The rare path: full 8-word digest and the exact 256-bit compare, then a
 // winner slot. Not inlined, so its registers stay out of the hot loop.
 __device__ __noinline__ void escalate(const JobParams& p, uint32_t nonce,
                                       uint32_t h0, uint32_t* out, int k) {
+  uint32_t w1[16] = {p.w[8], p.w[9], p.w[10], nonce, 0x80000000u, 0, 0, 0,
+                     0,      0,      0,       0,     0,           0, 0, 640};
   uint32_t d[8];
-  first_hash(p, nonce, d);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = p.w[i];
+  sha256_compress(d, w1);
   uint32_t w[16] = {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
                     0x80000000u, 0, 0, 0, 0, 0, 0, 256};
   uint32_t s[8] = SHA256_IV_INIT;
-  sha256_rounds<64>(s, w);
-  const uint32_t iv[8] = SHA256_IV_INIT;
+  sha256_compress(s, w);
   // compare limbs most-significant-first: limb j = bswap(digest[7 - j])
-  uint32_t h[8];
+  uint32_t hl[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) h[j] = bswap32(iv[7 - j] + s[7 - j]);
-  if (limbs_le(h, &p.w[12])) take_slot(out, k, nonce, h0);
+  for (int j = 0; j < 8; ++j) hl[j] = bswap32(s[7 - j]);
+  if (limbs_le(hl, &p.w[12])) take_slot(out, k, nonce, h0);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    search_kernel(const JobParams p, unsigned long long lanes, uint32_t* out,
-                  int k) {
-  const uint32_t base = p.w[11];
-  const uint32_t t0 = p.w[12];
+// Each thread walks nonces base + first, + stride, ... with a 32-bit
+// counter: a window holds up to 2^32 nonces, so only the count of a
+// thread's nonces needs 64 bits, once. The loop runs as many steps as the
+// warp's first thread needs (the most of any lane), the lanes past their
+// own count idle through the last one, and __syncwarp() ends each step:
+// a lane that escalates would otherwise leave its warp split in two for
+// the rest of the launch (independent thread scheduling does not
+// reconverge after the call on its own), running every later step twice.
+__global__ void __launch_bounds__(kSearchThreads)
+    search_kernel(const SearchParams p, unsigned long long lanes,
+                  uint32_t* out, int k) {
+  const uint32_t t0 = p.job.w[12];
+  const unsigned long long first =
+      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const unsigned long long stride =
       static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  const auto steps = [&](unsigned long long from) {
+    return from < lanes ? static_cast<uint32_t>((lanes - from - 1) / stride + 1)
+                        : 0u;
+  };
+  const uint32_t mine = steps(first);
+  const uint32_t warp_steps = steps(first & ~31ull);
+  uint32_t nonce = p.job.w[11] + static_cast<uint32_t>(first);
   uint32_t best = kNoWinner;
-  for (unsigned long long off =
-           static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
-           threadIdx.x;
-       off < lanes; off += stride) {
-    const uint32_t nonce = base + static_cast<uint32_t>(off);
+  for (uint32_t i = 0; i < warp_steps;
+       ++i, nonce += static_cast<uint32_t>(stride)) {
     const uint32_t h0 = bswap32(sha256d_word7(p, nonce));
-    best = min(best, h0);
-    if (h0 <= t0) escalate(p, nonce, h0, out, k);
+    if (i < mine) {
+      best = min(best, h0);
+      if (h0 <= t0) escalate(p.job, nonce, h0, out, k);
+    }
+    __syncwarp();
   }
   // min top limb: every thread reaches here (no early exit)
-  block_min_to<kThreads>(best, &out[2 * k + 2]);
+  block_min_to<kSearchThreads>(best, &out[2 * k + 2]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -196,14 +349,15 @@ int grid_blocks(unsigned long long lanes, int* err) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel,
-                                                        kThreads, 0);
+                                                        kSearchThreads, 0);
     if (e != cudaSuccess) {
       *err = static_cast<int>(e);
       return 0;
     }
     wave = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const unsigned long long need = (lanes + kThreads - 1) / kThreads;
+  const unsigned long long need =
+      (lanes + kSearchThreads - 1) / kSearchThreads;
   return need < static_cast<unsigned long long>(wave) ? static_cast<int>(need)
                                                       : wave;
 }
@@ -213,19 +367,22 @@ int grid_blocks(unsigned long long lanes, int* err) {
 extern "C" {
 
 // Launch init, search and finalize on `stream` without synchronizing.
-// job_words: host pointer to 22 words (copied into the kernel parameters
-// at launch); out: device pointer to 2k+3 words. Returns a cudaError_t
-// (0 = every launch was accepted).
-int otedama_sha256d_search(const uint32_t* job_words, unsigned long long batch,
+// params: host pointer to the 22 job words followed by what
+// sha256_cuda.search_params hoists from them (copied into the kernel
+// parameters at launch); out: device pointer to 2k+3 words. Returns a
+// cudaError_t (0 = every launch was accepted).
+int otedama_sha256d_search(const uint32_t* params, unsigned long long batch,
                            int k, uint32_t* out, void* stream) {
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  JobParams p;
-  for (int i = 0; i < kJobWords; ++i) p.w[i] = job_words[i];
+  SearchParams p;
+  static_assert(sizeof(SearchParams) == (kJobWords + kHoistedWords) * 4,
+                "SearchParams must be the packed words");
+  memcpy(&p, params, sizeof(p));
   unsigned long long lanes = 0;
-  if (p.w[21] == 0) {
+  if (p.job.w[21] == 0) {
     const unsigned long long in_range =
-        static_cast<unsigned long long>(p.w[20]) + 1;
+        static_cast<unsigned long long>(p.job.w[20]) + 1;
     lanes = batch < in_range ? batch : in_range;
   }
   init_buffer<<<1, kThreads, 0, s>>>(out, k);
@@ -235,11 +392,11 @@ int otedama_sha256d_search(const uint32_t* job_words, unsigned long long batch,
     int err = 0;
     const int blocks = grid_blocks(lanes, &err);
     if (err != 0) return err;
-    search_kernel<<<blocks, kThreads, 0, s>>>(p, lanes, out, k);
+    search_kernel<<<blocks, kSearchThreads, 0, s>>>(p, lanes, out, k);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  finalize_buffer<<<1, 1, 0, s>>>(out, k, p.w[11]);
+  finalize_buffer<<<1, 1, 0, s>>>(out, k, p.job.w[11]);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -59,3 +60,105 @@ def build(source: str, headers: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, dict
         info.update(seconds=time.monotonic() - t0, ptxas=proc.stderr.strip())
     info["library"] = str(so)
     return ctypes.CDLL(str(so)), info
+
+
+def ptxas_usage(ptxas: str) -> dict[str, str]:
+    """Registers and spills of each function, from ``-Xptxas -v``'s
+    report: ``{function: "N registers, S bytes spill stores, L bytes
+    spill loads"}``."""
+    usage, fn = {}, None
+    for line in ptxas.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if head:
+            fn = head.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if fn and spill:
+            usage.setdefault(fn, "")
+            usage[fn] = (usage[fn] + f" {spill.group(1)} B spill stores, "
+                         f"{spill.group(2)} B spill loads").strip(" ,")
+        if fn and regs:
+            usage[fn] = f"{regs.group(1)} registers, " + usage.get(fn, "")
+            usage[fn] = usage[fn].strip(" ,")
+    return usage
+
+
+# the integer pipes of an SM sub-partition: the ALU pipe (IADD3, LOP3, SHF
+# and the other plain integer ops) and the FMA pipe (IMAD in all its forms)
+ALU_OPS = ("IADD3", "LOP3", "SHF", "IABS", "IMNMX", "ISETP", "LEA", "PRMT",
+           "SEL", "FLO", "POPC", "BREV", "VIMNMX", "BMSK")
+FMA_OPS = ("IMAD",)
+
+
+def sass_functions(library: str, kernel: str) -> dict[str, list[tuple[int, str, str]]]:
+    """The compiled SASS of each function of ``library`` whose name holds
+    ``kernel`` (``cuobjdump -sass``, beside nvcc): a list of
+    ``(address, opcode, operands)`` per function."""
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    fns, code = {}, None
+    for line in out.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            code = fns.setdefault(head.group(1), []) \
+                if kernel in head.group(1) else None
+            continue
+        op = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)(\S*)\s*([^;]*)", line)
+        if code is not None and op:
+            code.append((int(op.group(1), 16), op.group(2) + op.group(3),
+                         op.group(4)))
+    if not fns:
+        raise RuntimeError(f"no function {kernel!r} in {library}")
+    return fns
+
+
+def hot_loop(code: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
+    """The instructions of a function's largest loop: from the target of
+    its longest backward branch to the branch (the branch to itself that
+    ends every function is no loop); empty if it has none."""
+    best = []
+    for addr, op, args in code:
+        target = re.search(r"0x[0-9a-f]+", args)
+        if op.startswith("BRA") and target and int(target.group(0), 16) < addr:
+            to = int(target.group(0), 16)
+            body = [c for c in code if to <= c[0] <= addr]
+            if len(body) > len(best):
+                best = body
+    return best
+
+
+def pipe_counts(code) -> dict[str, int]:
+    """Instructions of ``code`` on the ALU pipe, on the FMA pipe (IMAD),
+    shuffles, and in all."""
+    base = [op.split(".")[0] for _, op, _ in code]
+    return {"total": len(base),
+            "alu": sum(b in ALU_OPS for b in base),
+            "fma": sum(b in FMA_OPS for b in base),
+            "shfl": sum(b == "SHFL" for b in base)}
+
+
+def kernel_report(info: dict, kernel: str) -> list[str]:
+    """Lines on each function of a build whose name holds ``kernel``: its
+    registers and spills (``-Xptxas -v``, when the build compiled), then
+    its SASS: the whole function's instruction count and its hot loop's
+    instructions by integer pipe, and its shuffles."""
+    lines = [f"ptxas {fn}: {usage}"
+             for fn, usage in ptxas_usage(info.get("ptxas", "")).items()
+             if kernel in fn]
+    for fn, code in sass_functions(info["library"], kernel).items():
+        loop = hot_loop(code)
+        part = pipe_counts(loop or code)
+        lines.append(
+            f"SASS {fn}: {len(code)} instructions; "
+            + (f"hot loop {part['total']} an iteration" if loop
+               else "no loop, the whole function")
+            + f": ALU pipe {part['alu']} ({part['alu'] / part['total']:.1%}),"
+            f" FMA pipe (IMAD) {part['fma']} ({part['fma'] / part['total']:.1%}),"
+            f" SHFL {part['shfl']}")
+    return lines

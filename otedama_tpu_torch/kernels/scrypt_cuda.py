@@ -8,7 +8,8 @@ backends call: three launches into one winner buffer — the PBKDF2
 prologue (header -> X), the ROMix (``romix``, or the ``blockmix`` tier's
 2,048 BlockMix launches around a ``torch.gather`` of V's rows), and the
 epilogue (PBKDF2 -> digest -> exact 256-bit compare -> winners), with the
-``uint32[2k+3]`` buffer of ``scrypt_jax.scrypt_search_winners``.
+``uint32[2k+3]`` buffer of ``scrypt_jax.scrypt_search_winners``. B5 runs
+each lane's ROMix on four threads.
 ``scrypt_verify`` is share validation, the counterpart of
 ``scrypt_jax.scrypt_verify_step``: a verify prologue (each lane's own
 header -> X), the ROMix (B5), and a verify epilogue (-> digest -> exact

@@ -6,8 +6,10 @@
 share validation). The library is built at first use by ``cuda_build``
 (nvcc for ``sm_90a``, a shared library with plain C entry points loaded
 through ``ctypes``). The
-search's job words ride in as kernel parameters, so a search launch copies
-nothing to the device.
+search's job words, and what ``search_params`` computes from them once a
+launch (the first compression up to its first nonce-dependent operation),
+ride in as kernel parameters, so a search launch copies nothing to the
+device.
 
 ``sha256d_search`` and ``sha256d_verify`` launch on a CUDA stream without
 synchronizing and return the device ``uint32[2k+3]`` buffer (an int32
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from otedama_tpu_torch.kernels import LaunchCounter, cuda_build, sha256_torch
+from otedama_tpu_torch.utils.sha256_host import SHA256_K
 
 _M32 = 0xFFFFFFFF
 
@@ -41,6 +44,9 @@ JOB_WORDS = 22
 # default winner-table depth: at real difficulty a 2^31 launch sees ~0-1
 # winners, so 16 slots overflow only at test-easy targets
 K_WINNERS = 16
+
+# nonces a block of the search kernel takes a step: one a thread
+SEARCH_BLOCK_NONCES = 256
 
 SOURCE = "sha256d.cu"
 HEADERS = ("sha256_device.cuh",)
@@ -71,6 +77,50 @@ def pack_job_words(midstate, tail, nonce_base, target_limbs,
     else:
         out[20] = np.uint32((count - 1) & _M32)
     return out
+
+
+# what search_params hoists after the 22 job words (csrc/sha256d.cu
+# `Hoisted`): the state after round 2, round 3's a and e less the nonce,
+# K[i] + W[i] for i = 4..17, the job-only sums of W18..W33, and the three
+# multipliers that put the kernel's adds and shifts on the FMA pipe
+HOISTED_WORDS = 43
+
+
+def search_params(job_words) -> np.ndarray:
+    """The search kernel's launch parameters: the 22 job words, then what
+    depends on them alone, computed here once a launch so that the
+    kernel's loop starts at the first operation that depends on the nonce
+    (W3): rounds 0..2 of the first compression from the midstate, round 3
+    but for its two adds of the nonce, K[i] + W[i] of the constant words
+    W4..W17, and for W18..W33 the sum of their job-only terms."""
+    st = sha256_torch   # its round functions take Python ints as well
+    jw = [int(x) for x in np.asarray(job_words, dtype=np.uint32)]
+    if len(jw) != JOB_WORDS:
+        raise ValueError(f"job_words must be uint32[{JOB_WORDS}], got {len(jw)}")
+    # W[i] of the first compression but W3 (the nonce): tail, padding, length
+    W = jw[8:11] + [None, 0x80000000] + [0] * 10 + [640]
+    W.append((st._small_sigma0(W[1]) + W[0]) & _M32)                    # W16
+    W.append((st._small_sigma1(W[15]) + st._small_sigma0(W[2]) + W[1]) & _M32)
+    a, b, c, d, e, f, g, h = jw[0:8]
+    for i in range(4):
+        t1 = (h + st._big_sigma1(e) + st._ch(e, f, g) + SHA256_K[i]
+              + (W[i] or 0)) & _M32
+        t2 = (st._big_sigma0(a) + st._maj(a, b, c)) & _M32
+        if i == 3:          # W3 is the nonce: both adds of it stay
+            s3 = [a, b, c, d, e, f, g, h]
+            a4, e4 = (t1 + t2) & _M32, (d + t1) & _M32
+            break
+        a, b, c, d, e, f, g, h = (t1 + t2) & _M32, a, b, c, (d + t1) & _M32, e, f, g
+    kw = [(SHA256_K[i] + W[i]) & _M32 for i in range(4, 18)]
+    wc = []
+    for i in range(18, 34):     # the terms of W[i] whose word is job-only
+        terms = [(st._small_sigma1, i - 2), (None, i - 7),
+                 (st._small_sigma0, i - 15), (None, i - 16)]
+        wc.append(sum((fn(W[j]) if fn else W[j]) for fn, j in terms
+                      if j != 3 and j < 18) & _M32)
+    out = jw + s3 + [a4, e4] + kw + wc + [1, 1 << 29, 1 << 22]
+    assert len(out) == JOB_WORDS + HOISTED_WORDS
+    return np.asarray(out, dtype=np.uint32)
 
 
 def winner_buffer_words(k: int) -> int:
@@ -145,10 +195,11 @@ def sha256d_search(job_words, *, batch: int, k: int = K_WINNERS, device,
             or not out.is_contiguous()):
         raise ValueError("out must be a contiguous int32 tensor of 2k+3 "
                          "words on the stream's device")
+    params = search_params(jw)
     lib = load_library()
     with torch.cuda.device(out.device):
         rc = lib.otedama_sha256d_search(
-            jw.ctypes.data, batch, k, out.data_ptr(), stream.cuda_stream)
+            params.ctypes.data, batch, k, out.data_ptr(), stream.cuda_stream)
     if rc != 0:
         msg = lib.otedama_cuda_error_string(rc).decode()
         raise RuntimeError(f"sha256d_search launch failed: CUDA error {rc} "

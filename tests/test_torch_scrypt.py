@@ -396,3 +396,27 @@ def test_card_paths_raise_without_a_card():
         scc.load_library()
     assert (scc.romix_launches.value, scc.search_launches.value,
             scc.blockmix_launches.value, scc.blockmix_xor_launches.value) == before
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 37, 4099, (1 << 18) - 5, 1 << 18])
+def test_scratch_words_hold_v_exactly_at_ragged_lane_counts(lanes):
+    # B5's V is [row][lane][32 words] whatever the lane count: a quad of
+    # threads a lane needs no padding, so V is its 128 KiB a lane (64 KiB
+    # with half_v) and the blockmix tier's [1024, 32, lanes] view takes it
+    # whole; 2^18 lanes (the backends' chunk) need exactly 32 GiB
+    words = scc.scratch_words(lanes)
+    assert words * 4 == lanes * 128 << 10
+    assert words == scc.SCRYPT_N * scc.ROW_WORDS * lanes
+    assert scc.scratch_words(1 << 18) * 4 == 32 << 30
+
+
+def test_kernel_ab_needs_two_trees_and_a_card(monkeypatch):
+    # the script that times two trees of the package in turns refuses one
+    # tree, and without a card exits 2 before it builds or times any tree
+    from otedama_tpu_torch.kernels import card, kernel_ab
+    with pytest.raises(SystemExit):
+        kernel_ab.main(["."])
+    monkeypatch.setattr(card, "smi", lambda query: "?")
+    monkeypatch.setattr(kernel_ab, "run_child",
+                        lambda *a: pytest.fail("a tree ran without a card"))
+    assert kernel_ab.main([".", "."]) == 2

@@ -236,3 +236,67 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert out.device.type == "cpu" and out.dtype == torch.int32
     assert np.array_equal(out.numpy().view(np.uint32), _ref_buf(jw))
     assert sc.launches.value == before  # the kernel never ran
+
+
+def _rotr_np(x, n):
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def test_search_params_hoist_the_first_compression_exactly():
+    # the kernel's loop from the hoisted words, written out in numpy as
+    # csrc/sha256d.cu runs it (round 3's two nonce adds, rounds 4..63 with
+    # K[i] + W[i] of W4..W17 and the job-only sums of W18..W33 taken from
+    # the parameters), must give the plain rounds' first digest word for
+    # word, and digest word 7 of the second hash as the reference's
+    # sha256d gives it
+    rng = np.random.default_rng(11)
+    K = [int(x) for x in sh.SHA256_K]
+    s0 = lambda x: _rotr_np(x, 7) ^ _rotr_np(x, 18) ^ (x >> 3)    # noqa: E731
+    s1 = lambda x: _rotr_np(x, 17) ^ _rotr_np(x, 19) ^ (x >> 10)  # noqa: E731
+    for _ in range(4):
+        ms, tail = _rand_job(rng)
+        p = sc.search_params(sc.pack_job_words(ms, tail, 0, [M32] * 8))
+        assert p.shape == (sc.JOB_WORDS + sc.HOISTED_WORDS,)
+        assert p[:sc.JOB_WORDS].tolist() == sc.pack_job_words(
+            ms, tail, 0, [M32] * 8).tolist()
+        s3, (a4, e4) = p[22:30], p[30:32]
+        kw, wc = p[32:46].astype(np.int64), p[46:62].astype(np.int64)
+        assert p[62:].tolist() == [1, 1 << 29, 1 << 22]
+        n = rng.integers(0, 1 << 32, size=257, dtype=np.int64)
+        s = [(int(a4) + n) & M32] + [np.int64(int(x)) for x in s3[:3]] + \
+            [(int(e4) + n) & M32] + [np.int64(int(x)) for x in s3[4:7]]
+        w = {3: n}
+        for i in range(4, 64):
+            if i < 18:
+                u = s[7] + kw[i - 4]
+            else:
+                acc = wc[i - 18] if i <= 33 else 0
+                for fn, j in ((None, i - 16), (s0, i - 15), (None, i - 7),
+                              (s1, i - 2)):
+                    if j == 3 or j >= 18:
+                        acc = acc + (fn(w[j]) if fn else w[j])
+                w[i] = acc & M32
+                u = s[7] + w[i] + K[i]
+            a, b, c, d, e, f, g, _ = s
+            t1 = (u + (_rotr_np(e, 6) ^ _rotr_np(e, 11) ^ _rotr_np(e, 25))
+                  + (g ^ (e & (f ^ g)))) & M32
+            t2 = ((_rotr_np(a, 2) ^ _rotr_np(a, 13) ^ _rotr_np(a, 22))
+                  + ((a & (b | c)) | (b & c))) & M32
+            s = [(t1 + t2) & M32, a, b, c, (d + t1) & M32, e, f, g]
+        got = [(int(m) + x) & M32 for m, x in zip(ms, s)]
+        tn = torch.as_tensor(n)
+        z = torch.tensor(0, dtype=torch.int64)
+        want = st.compress(tuple(torch.tensor(int(m)) for m in ms),
+                           [torch.tensor(int(x)) for x in tail]
+                           + [tn, torch.tensor(0x80000000)] + [z] * 10
+                           + [torch.tensor(640)])
+        for g_, w_ in zip(got, want):
+            assert np.array_equal(np.broadcast_to(g_, n.shape), w_.numpy())
+        d7 = _ref_digest_words(ms, tail, n.astype(np.uint32))[7]
+        assert np.array_equal(
+            _port_digest_words(ms, tail, n.astype(np.uint32))[7], d7)
+        second = st.compress(tuple(torch.tensor(v) for v in sh.SHA256_IV),
+                             [torch.as_tensor(np.broadcast_to(x, n.shape).copy())
+                              for x in got] + [torch.tensor(0x80000000)]
+                             + [z] * 6 + [torch.tensor(256)])
+        assert np.array_equal(second[7].numpy(), d7)

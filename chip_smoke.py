@@ -53,7 +53,10 @@ calls, and checks every phase; any failure exits non-zero. Phases:
    one Byzantine share in three (k = 512 holds every failure at 1,024
    lanes; at 2^20 the k = 16 table overflows and the count and min are
    compared), 2^20 lanes with 9 Byzantine shares, a count short of the
-   rows, an empty batch;
+   rows, an empty batch, counts 1, 37, 255 and 256 x 37 + 1, a
+   ``words20[off:]`` view read in place, and two launches right after a
+   failed one (cudaErrorInvalidValue, its workspace made dirty first);
+   misaligned, non-contiguous and int64 inputs raise before any launch;
 15. the scrypt verify path (verify prologue, ROMix B5, verify epilogue)
    against the plain version and hashlib at the ledger's shape (1,024
    lanes, k = 16, 4 planted failures across blocks) and at 256, 37 and 1
@@ -68,8 +71,11 @@ calls, and checks every phase; any failure exits non-zero. Phases:
    sha256d flushes again without the second producer (per-flush rates,
    median and spread, beside those of the shared run) and an overflowed
    batch settled on the card;
-17. B2 ms per launch at 128, 1,024, 4,096 and 2^20 lanes, and the scrypt
-   verify path at 1,024 and 4,096 lanes, beside their bounds; where
+17. B2 ms a call at 128, 1,024, 4,096 and 2^20 lanes beside its bound,
+   with the host's enqueue of a call, the kernels a call ran (the
+   wrapper's count, and torch.profiler's), and the latency floor under
+   any one-launch call (an empty kernel, and B2 on one lane); the scrypt
+   verify path at 1,024 and 4,096 lanes beside its bound; where
    ``verify_batch`` on the card overtakes host validation, by batch size
    (the crossover that ``VALIDATE_MIN_BATCH`` sets).
 
@@ -723,10 +729,11 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
         m = min(n, k)
         return buf[:m].tolist(), buf[k:k + m].tolist(), n, int(buf[2 * k + 2])
 
-    def versus_plain(name, words, limbs, count, k, scrypt=False):
-        """kernel vs plain version on the card, on the same inputs: every
-        word when n <= k, else the count and the min"""
-        w, t = on_card(words), on_card(limbs)
+    def versus_plain(name, words, limbs, count, k, scrypt=False, tensors=None):
+        """kernel vs plain version on the card, on the same inputs (arrays,
+        or ``tensors`` on the card as they are): every word when n <= k,
+        else the count and the min"""
+        w, t = tensors or (on_card(words), on_card(limbs))
         kernel, plain = ((scc.scrypt_verify, sct.scrypt_verify_step) if scrypt
                          else (sc.sha256d_verify, st.sha256d_verify_step))
         a = host(kernel(w, t, count, k=k))
@@ -738,7 +745,7 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
               f"{b.tolist()[:40]}")
         max_err["scrypt" if scrypt else "B2"] = max(
             max_err["scrypt" if scrypt else "B2"], int(diff.max()))
-        print(f"   {name}: {count} of {len(words)} rows, k={k}, n={n}"
+        print(f"   {name}: {count} of {len(w)} rows, k={k}, n={n}"
               f"{' (overflow: count and min)' if n > k else ''}, "
               f"min_h0={b[2 * k + 2]:#010x} equal", flush=True)
         return a
@@ -805,6 +812,63 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
                  np.concatenate([hl[:700], zeros[700:]]), 700, 16)
     a = versus_plain("empty batch", words[:64], zeros[:64], 0, 16)
     check(int(a[32]) == 0 and int(a[34]) == full, "empty batch buffer")
+    # the counts around a block's rows (128 or 256 a block by the lane
+    # count), a few Byzantine shares each and all-failing rows past count
+    for count in (1, 37, 255, 256 * 37 + 1):
+        sel = hl[:count + 3].copy()
+        sel[count:] = 0
+        byz = rng.choice(count, min(count, 5), replace=False)
+        sel[byz] = limbs_step(hl[byz], -1)
+        a = versus_plain(f"count {count}", words[:count + 3], sel, count, 16)
+        check(a[:len(byz)].tolist() == sorted(byz.tolist()),
+              f"count {count}: failing offsets != the Byzantine rows")
+    # a words20[off:] view: 16-byte aligned rows, read in place
+    off, count = 3, 300
+    few = hl[:off + count].copy()
+    few[off + rng.choice(count, 4, replace=False)] = 0
+    w_all, t_all = on_card(words[:off + count]), on_card(few)
+    versus_plain("words20[3:] view", None, None, count, 16,
+                 tensors=(w_all[off:], t_all[off:]))
+    # a launch after a failed one: the wrapper's call fails (k = 0 through
+    # the C entry point: cudaErrorInvalidValue) with its stream's
+    # workspace made dirty first; the wrapper zeroes it and raises, and
+    # the launches after it are exact
+    lib = sc.load_library()
+    real = lib.otedama_sha256d_verify
+
+    def fails_dirty(w, t, lanes, k, out, ws, stream):
+        sc._workspaces[stream].fill_(7)
+        return real(w, t, lanes, 0, out, ws, stream)
+
+    lib.otedama_sha256d_verify = fails_dirty
+    before = sc.verify_launches.value
+    try:
+        sc.sha256d_verify(w_all, t_all, count, k=16)
+        failed = None
+    except RuntimeError as exc:
+        failed = str(exc)
+    finally:
+        lib.otedama_sha256d_verify = real
+    check(failed is not None and "CUDA error 1 (" in failed
+          and sc.verify_launches.value == before,
+          f"the injected failure did not raise as a failed launch: {failed}")
+    for name in ("the launch after a failed one", "the launch after that"):
+        versus_plain(name, None, None, count, 16, tensors=(w_all, t_all))
+    print(f"   injected: {failed}", flush=True)
+    # inputs the kernel cannot read in place raise, and launch nothing
+    flat = on_card(np.zeros(20 * 9 + 1, dtype=np.uint32))
+    for name, bad in (("misaligned", (flat[1:].view(9, 20), t_all[:9])),
+                      ("non-contiguous", (w_all[:9], t_all[:18:2])),
+                      ("int64", (w_all[:9], t_all[:9].long()))):
+        try:
+            sc.sha256d_verify(*bad, 9)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised and sc.verify_launches.value == before + 2,
+              f"{name} inputs did not raise before any launch")
+    print("   misaligned, non-contiguous and int64 inputs raise before any "
+          "launch", flush=True)
 
     # -- 15. the scrypt verify path ----------------------------------------------
     phase("15 scrypt verify path vs plain version and hashlib, 1,024, 256, 37 "
@@ -1003,14 +1067,104 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
     w_all = on_card(st.headers_to_words(headers))
     t_all = on_card(np.full((1 << 20, 8), full, dtype=np.uint32))
     torch.cuda.synchronize(dev)
+    def device_ms(fn, reps):
+        """as median_ms, but each round starts behind a ~10 ms spin kernel
+        during which the host enqueues the round's calls: the card's time
+        a call back to back, the host's enqueue hidden"""
+        rounds = []
+        with torch.cuda.stream(stream):
+            fn()
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(20_000_000)
+                start.record(stream)
+                for _ in range(reps):
+                    fn()
+                stop.record(stream)
+                stop.synchronize()
+                rounds.append(start.elapsed_time(stop) / reps)
+        return sorted(rounds)[1], rounds
+
+    # the latency floor under any one-launch call: an empty kernel's
+    # launch to completion, and B2's own on one lane (each launched alone
+    # between two events, host enqueue included; and back to back on the
+    # card, the enqueue hidden)
+    def alone_ms(fn, reps=50):
+        times = []
+        with torch.cuda.stream(stream):
+            fn()
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                fn()
+                stop.record(stream)
+                stop.synchronize()
+                times.append(start.elapsed_time(stop))
+        return sorted(times)[reps // 2]
+
+    out = torch.empty(sc.winner_buffer_words(16), dtype=torch.int32, device=dev)
+    w1, t1 = w_all[:1], t_all[:1]
+    floor = {
+        "empty kernel": (alone_ms(lambda: sc.empty_launch(stream)),
+                         device_ms(lambda: sc.empty_launch(stream), 50)[0]),
+        "B2, 1 lane": (alone_ms(lambda: sc.sha256d_verify(
+            w1, t1, 1, stream=stream, out=out)), device_ms(
+            lambda: sc.sha256d_verify(w1, t1, 1, stream=stream, out=out),
+            50)[0]),
+    }
+    print("   latency floor, ms: " + "; ".join(
+        f"{name} {a:.4f} alone (launch to completion), {b:.4f} back to back "
+        f"on the card" for name, (a, b) in floor.items()) + f"; {card}",
+        flush=True)
+
+    def device_kernels(fn, calls=10):
+        """the device kernels and copies that ``calls`` calls of ``fn``
+        ran, by name, from torch.profiler (None when it saw no device
+        activity)"""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+        names: dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        return names or None
+
     b2 = {}
     for lanes in (128, 1024, 4096, 1 << 20):
-        w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
+        w, t = w_all[:lanes], t_all[:lanes]
         torch.cuda.synchronize(dev)
-        ms, rounds = median_ms(lambda: sc.sha256d_verify(w, t, lanes,
-                                                         stream=stream),
-                               stream, 20 if lanes < 1 << 20 else 5)
+        call = lambda: sc.sha256d_verify(w, t, lanes, stream=stream, out=out)  # noqa: E731
+        ms, rounds = median_ms(call, stream, 200 if lanes < 1 << 20 else 20)
+        card_ms, card_rounds = device_ms(call, 50 if lanes < 1 << 20 else 5)
+        # the host's enqueue of one call, as the ledger makes it (no wait)
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                call()
+            enqueue.append((time.perf_counter() - t0) * 1e4)
         torch.cuda.synchronize(dev)
+        before = sc.verify_launches.value
+        try:
+            ran = device_kernels(call)
+        except Exception as exc:        # the profiler is optional here
+            ran = f"not measured ({type(exc).__name__}: {exc})"
+        launches = (sc.verify_launches.value - before) / 10
+        if isinstance(ran, dict):
+            kernels = {n: c / 10 for n, c in ran.items()}
+            check(len(kernels) == 1 and "verify_kernel" in next(iter(kernels))
+                  and next(iter(kernels.values())) == 1,
+                  f"B2 call ran {kernels} on the card, not one verify kernel")
+            ran = f"one verify kernel and nothing else a call ({next(iter(kernels))})"
+        elif ran is None:
+            ran = "not measured (torch.profiler saw no device activity)"
         t0 = time.monotonic()
         st.sha256d_verify_step(w, t, lanes - 1, k=16)
         torch.cuda.synchronize(dev)
@@ -1020,38 +1174,22 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
                     + sc.winner_buffer_words(16) * 4) / HBM_BYTES_PER_S * 1e3
         b2[lanes] = (ms, plain, max(ops_ms, bytes_ms),
                      "operations" if ops_ms >= bytes_ms else "bytes")
-        print(f"   B2 {lanes} lanes: {ms:.4f} ms per launch (rounds "
+        print(f"   B2 {lanes} lanes: {ms:.4f} ms a call (rounds "
               + ", ".join(f"{r:.4f}" for r in rounds)
-              + f") = {lanes / ms * 1e3:.3e} shares/s; bound {b2[lanes][2]:.5f}"
-              f" ms ({b2[lanes][3]}: {sc.verify_ops_per_share()} int32 ops, "
-              f"{sc.verify_bytes_per_share()} B a share); plain version "
-              f"{plain:.1f} ms; {card}", flush=True)
-    # where B2's call goes at 1,024 and 2^20 lanes: the host's enqueue of
-    # one call (no wait), the wrapper's two device transposes, and the three
-    # kernels alone on word-major inputs (straight through the library, so
-    # uncounted)
-    lib = sc.load_library()
-    out = torch.empty(sc.winner_buffer_words(16), dtype=torch.int32, device=dev)
-    for lanes in (1024, 1 << 20):
-        w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
-        wm, tm = w.t().contiguous(), t.t().contiguous()
-        torch.cuda.synchronize(dev)
-        with torch.cuda.stream(stream):
-            t0 = time.perf_counter()
-            for _ in range(100):
-                sc.sha256d_verify(w, t, lanes, stream=stream)
-            enqueue_us = (time.perf_counter() - t0) * 1e4
-        torch.cuda.synchronize(dev)
-        transpose_ms, _ = median_ms(lambda: (w.t().contiguous(),
-                                             t.t().contiguous()), stream, 20)
-        kernels_ms, _ = median_ms(lambda: lib.otedama_sha256d_verify(
-            wm.data_ptr(), tm.data_ptr(), lanes, 16, out.data_ptr(),
-            stream.cuda_stream), stream, 20)
-        print(f"   B2 {lanes} lanes, per call: host enqueue {enqueue_us:.1f} us; "
-              f"on the card the two transposes {transpose_ms:.4f} ms and the "
-              f"init, verify and finalize kernels {kernels_ms:.4f} ms "
-              f"({b2[lanes][2] / kernels_ms:.1%} of the bound); {card}",
-              flush=True)
+              + f") = {lanes / ms * 1e3:.3e} shares/s; on the card back "
+              f"to back, the enqueue hidden, {card_ms:.4f} ms (rounds "
+              + ", ".join(f"{r:.4f}" for r in card_rounds)
+              + "); host enqueue "
+              + ", ".join(f"{e:.1f}" for e in enqueue)
+              + f" us a call; {launches:g} kernel launch a call by the "
+              f"wrapper's count, the profiler: {ran}; bound "
+              f"{b2[lanes][2]:.5f} ms ({b2[lanes][3]}: "
+              f"{sc.verify_ops_per_share()} int32 ops, "
+              f"{sc.verify_bytes_per_share()} B a share), "
+              f"{b2[lanes][2] / ms:.1%} of it; latency floor "
+              f"{floor['empty kernel'][0]:.4f} ms (empty kernel), "
+              f"{floor['B2, 1 lane'][0]:.4f} ms (B2 on 1 lane); plain "
+              f"version {plain:.1f} ms; {card}", flush=True)
     for lanes in (1024, 4096):
         w, t = w_all[:lanes].contiguous(), t_all[:lanes].contiguous()
         scratch = (torch.empty(scc.ROW_WORDS * lanes, dtype=torch.int32, device=dev),
@@ -1211,10 +1349,12 @@ def main() -> int:
     for info in (sc.build_info, scc.build_info):
         print(f"   {info['library']}: nvcc {info.get('seconds', 0.0):.1f} s",
               flush=True)
-    for info, kernel in ((sc.build_info, "search_kernel"),
-                         (sc.build_info, "verify_kernel"),
-                         (scc.build_info, "romix_kernel")):
-        for line in cuda_build.kernel_report(info, kernel):
+    # B2's work is straight-line code (its loops are the bulk copy's wait
+    # and the last block's bookkeeping), so its count is the whole kernel's
+    for info, kernel, loop in ((sc.build_info, "search_kernel", True),
+                               (sc.build_info, "verify_kernel", False),
+                               (scc.build_info, "romix_kernel", True)):
+        for line in cuda_build.kernel_report(info, kernel, loop):
             print(f"   {line}", flush=True)
 
     # -- 2. known answer: the genesis block -----------------------------------

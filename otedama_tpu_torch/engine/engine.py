@@ -271,11 +271,17 @@ class MiningEngine:
                     continue
                 break  # job changed or stopping
             # drain whatever is still in flight for this job: winners of an
-            # already-running launch are valid shares for it
+            # already-running launch are valid shares for it, so a call that
+            # failed is logged and skipped, and the calls behind it are
+            # still consumed
             while pending:
                 p_en2, p_fut = pending.pop(0)
-                await self._consume(job, p_en2, await asyncio.shield(p_fut),
-                                    dstats, None)
+                try:
+                    results = await asyncio.shield(p_fut)
+                except Exception:
+                    log.exception("in-flight search failed during drain")
+                    continue
+                await self._consume(job, p_en2, results, dstats, None)
 
     async def _consume(self, job: Job, en2: bytes, results, dstats,
                        t_last: float | None) -> float:

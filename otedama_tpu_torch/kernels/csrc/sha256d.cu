@@ -62,20 +62,46 @@
 // (header block 1, header block 2, the 32-byte digest) — about 4,000 int32
 // operations after the constant words fold (sha256_cuda.verify_ops_per_share)
 // — against 112 bytes of input (20 header words, 8 target limbs), so the
-// operations bound it: ~0.13 ms at 2^20 shares. At the pool ledger's
-// batches (128 to 4,096 shares) one launch is a few microseconds of work,
-// and the launches themselves set the time. The design:
+// operations bound it: ~0.13 ms at 2^20 shares, and the ALU pipe among
+// them, as in the search. At the pool ledger's batches (128 to 4,096
+// shares) one launch is a few microseconds of work: there one lane's
+// chain of dependent rounds and the launch itself set the time, and the
+// host's enqueue of the call must stay under them. The design:
+//   - ONE launch a call, reading the caller's row-major [lanes, 20] words
+//     and [lanes, 8] limbs in place (no transposes): each thread loads its
+//     own share's row as five and two 16-byte words (rows are 80 and 32
+//     bytes, 16-byte aligned). Staging a block's contiguous span in shared
+//     memory first, by a Hopper bulk copy (cp.async.bulk on an mbarrier)
+//     or by coalesced 16-byte loads, bought nothing: 112 bytes a share
+//     against ~4,000 operations, and in turns on the H100 either staging
+//     ran 1.5-2% slower at 2^20 shares than these loads (PERF.md);
 //   - one thread per share; every share is a different header, so no
-//     midstate can be hoisted as the search hoists it;
-//   - header words and limbs arrive word-major, [20, lanes] and
-//     [8, lanes] (the wrapper transposes on the device), so each of a
-//     warp's loads is one contiguous 128-byte line;
-//   - the constant words of the second and third blocks (padding, the
-//     640- and 256-bit lengths) and the IV are literals, so they fold;
-//   - slots, the block min and the finalize sort are the search's, so
-//     for n <= k the buffer equals the TPU kernel's word for word.
-// Only the `lanes` in-range shares are launched: rows past count-1 never
-// count, as in the reference.
+//     midstate can be hoisted as the search hoists it. The constant words
+//     of the second and third blocks (padding, the 640- and 256-bit
+//     lengths) and the IV are literals, so they fold; rounds 0..3 from the
+//     IV keep plain adds so the IV folds with them, and every other add is
+//     a * one + b and the schedule's right shifts __umulhi by 2^29 and
+//     2^22, with one and the multipliers launch parameters (ptxas folds
+//     literals), so they issue on the FMA pipe as IMAD and IMAD.HI and the
+//     ALU pipe keeps the rotates and the logic, as in the search;
+//   - blocks of 128 threads while the batch gives each SM at most one
+//     block, 256 above. Under one wave a call's time is one lane's chain
+//     (~4,900 straight-line instructions that each SM fetches for
+//     itself) plus the launch, and one warp for each scheduler of an SM
+//     measured fastest there (PERF.md); at 2^20 shares 256 runs 8.6%
+//     faster than 128 and 9% faster than 32;
+//   - failures take slots with atomicAdd on a count, straight in the
+//     output (arbitrary order); the min top limb is reduced per warp and
+//     per block and leaves each block as one atomicMax of its complement.
+//     Both accumulators and a ticket of finished blocks sit in a 3-word
+//     workspace that is all zero between launches. Each block fences its
+//     writes and takes a ticket; the last block sorts the <= k slots by
+//     offset, writes every other word of the 2k+3 (unused slots, count,
+//     0, min), and zeroes the workspace for the next launch. A launch that
+//     fails leaves the workspace as it was; the wrapper zeroes it again.
+// For n <= k the buffer equals the TPU kernel's word for word; for n > k
+// only the count and the min are defined. Only the `lanes` in-range shares
+// are read: rows past count-1 never count, as in the reference.
 
 #include <cstdint>
 #include <cstring>
@@ -87,7 +113,7 @@ namespace {
 
 constexpr int kJobWords = 22;
 constexpr int kHoistedWords = 43;  // sizeof(Hoisted) / 4
-constexpr int kThreads = 256;        // verify, init
+constexpr int kThreads = 256;        // init, and verify at most
 constexpr int kSearchThreads = 256;  // search: one nonce a thread a step
 
 struct JobParams {
@@ -303,39 +329,217 @@ __global__ void __launch_bounds__(kSearchThreads)
   block_min_to<kSearchThreads>(best, &out[2 * k + 2]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    verify_kernel(const uint32_t* __restrict__ words,
-                  const uint32_t* __restrict__ limbs,
-                  unsigned long long lanes, uint32_t* out, int k) {
-  const unsigned long long lane =
-      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// What a verify launch takes besides its pointers: 1 and the two shift
+// multipliers, as launch parameters so ptxas cannot fold them (see fadd).
+struct Pipes {
+  uint32_t one;  // 1
+  uint32_t m29;  // 2^29: __umulhi(x, m29) = x >> 3
+  uint32_t m22;  // 2^22: __umulhi(x, m22) = x >> 10
+};
+
+// The three blocks of a verify: the header's first 64 bytes (every word
+// varies), its last 16 bytes with padding and the 640-bit length, and the
+// 32-byte digest with padding and the 256-bit length.
+enum Block { kHeader1, kHeader2, kDigest };
+
+template <Block kB>
+__device__ __forceinline__ bool word_varies(int i) {
+  return i >= 16 || kB == kHeader1 || i < (kB == kHeader2 ? 4 : 8);
+}
+
+template <Block kB>
+__device__ __forceinline__ uint32_t word_literal(int i) {
+  if (kB == kHeader2) return i == 4 ? 0x80000000u : i == 15 ? 640u : 0u;
+  if (kB == kDigest) return i == 8 ? 0x80000000u : i == 15 ? 256u : 0u;
+  return 0u;
+}
+
+__device__ __forceinline__ uint32_t s0p(uint32_t x, const Pipes& p) {
+  return rotr(x, 7) ^ rotr(x, 18) ^ fshr(x, p.m29);
+}
+__device__ __forceinline__ uint32_t s1p(uint32_t x, const Pipes& p) {
+  return rotr(x, 17) ^ rotr(x, 19) ^ fshr(x, p.m22);
+}
+
+// One whole compression with feed-forward, s = compress(s, x), its adds
+// and shifts on the FMA pipe; x holds the block's varying words (its
+// literal words are never read from it) and is clobbered. From the IV
+// (header block 1 and the digest block) the state's literal words fold
+// into rounds 0..3, which keep plain adds; the literal words of x fold
+// into K[i] + W[i].
+template <Block kB>
+__device__ __forceinline__ void compress_p(uint32_t s[8], uint32_t x[16],
+                                           const Pipes& p) {
+  constexpr bool kFromIV = kB != kHeader2;
+  const uint32_t one = p.one;
+  uint32_t t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = s[i];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i >= 16) {
+      // W[i] = W[i-16] + s0(W[i-15]) + W[i-7] + s1(W[i-2]): the literal
+      // terms fold into one constant, each varying term is an fadd
+      uint32_t lit = 0;
+      if (!word_varies<kB>(i - 16)) lit += word_literal<kB>(i - 16);
+      if (!word_varies<kB>(i - 15)) lit += small_sigma0(word_literal<kB>(i - 15));
+      if (!word_varies<kB>(i - 7)) lit += word_literal<kB>(i - 7);
+      if (!word_varies<kB>(i - 2)) lit += small_sigma1(word_literal<kB>(i - 2));
+      uint32_t acc = lit;
+      bool have = lit != 0;
+      if (word_varies<kB>(i - 16)) accumulate(acc, have, x[(i - 16) & 15], one);
+      if (word_varies<kB>(i - 15)) accumulate(acc, have, s0p(x[(i - 15) & 15], p), one);
+      if (word_varies<kB>(i - 7)) accumulate(acc, have, x[(i - 7) & 15], one);
+      if (word_varies<kB>(i - 2)) accumulate(acc, have, s1p(x[(i - 2) & 15], p), one);
+      x[i & 15] = acc;
+    }
+    if (kFromIV && i < 4) {
+      const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
+                          kK[i] + x[i & 15];
+      const uint32_t t2 = big_sigma0(t[0]) + maj(t[0], t[1], t[2]);
+      t[7] = t[6];
+      t[6] = t[5];
+      t[5] = t[4];
+      t[4] = t[3] + t1;
+      t[3] = t[2];
+      t[2] = t[1];
+      t[1] = t[0];
+      t[0] = t1 + t2;
+    } else if (i < 16 && !word_varies<kB>(i)) {
+      round_f(t, fadd(t[7], one, kK[i] + word_literal<kB>(i)), one);
+    } else {
+      round_f(t, fadd(t[7], one, fadd(x[i & 15], one, kK[i])), one);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = kFromIV ? s[i] + t[i] : fadd(s[i], one, t[i]);
+}
+
+constexpr int kRowWords = 20;  // header words a share
+constexpr int kRowLimbs = 8;   // target limbs a share
+
+// ws, the verify workspace: [0] failures counted, [1] ~(min top limb),
+// [2] blocks finished; all zero between launches.
+template <int kT>
+__global__ void __launch_bounds__(kT)
+    verify_kernel(const uint4* __restrict__ words,
+                  const uint4* __restrict__ limbs, uint32_t lanes,
+                  uint32_t* out, uint32_t* ws, int k, const Pipes p) {
+  __shared__ uint32_t warp_min[kT / 32];
+  __shared__ bool last;
+  const uint32_t first = blockIdx.x * kT;  // < lanes, or 0 when lanes == 0
+  const uint32_t lane = first + threadIdx.x;
   uint32_t best = kNoWinner;
-  if (lane < lanes) {
+  if (threadIdx.x < lanes - first) {
+    // the share's row: five and two 16-byte loads, each thread its own
+    const uint4* r = words + static_cast<size_t>(lane) * (kRowWords / 4);
     uint32_t w[16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = words[i * lanes + lane];
-    uint32_t s[8] = SHA256_IV_INIT;
-    sha256_compress(s, w);
-    uint32_t w2[16] = {words[16 * lanes + lane], words[17 * lanes + lane],
-                       words[18 * lanes + lane], words[19 * lanes + lane],
-                       0x80000000u, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 640};
-    sha256_compress(s, w2);
-    uint32_t w3[16] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
-                       0x80000000u, 0, 0, 0, 0, 0, 0, 256};
-    uint32_t d[8] = SHA256_IV_INIT;
-    sha256_compress(d, w3);
-    // compare limbs most-significant-first: limb j = bswap(digest[7 - j])
-    uint32_t h[8], t[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      h[j] = bswap32(d[7 - j]);
-      t[j] = limbs[j * lanes + lane];
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = __ldg(&r[q]);
+      w[4 * q] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
     }
+    uint32_t s[8] = SHA256_IV_INIT;
+    compress_p<kHeader1>(s, w, p);
+    const uint4 tail = __ldg(&r[4]);
+    uint32_t w2[16] = {tail.x, tail.y, tail.z, tail.w};
+    compress_p<kHeader2>(s, w2, p);
+    uint32_t d[8] = SHA256_IV_INIT;
+    uint32_t w3[16] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
+    compress_p<kDigest>(d, w3, p);
+    // compare limbs most-significant-first: limb j = bswap(digest[7 - j])
+    const uint4* lr = limbs + static_cast<size_t>(lane) * (kRowLimbs / 4);
+    const uint4 l0 = __ldg(&lr[0]), l1 = __ldg(&lr[1]);
+    const uint32_t t[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+    uint32_t h[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[j] = bswap32(d[7 - j]);
     best = h[0];
-    if (!limbs_le(h, t)) take_slot(out, k, static_cast<uint32_t>(lane), h[0]);
+    if (!limbs_le(h, t)) {
+      const uint32_t idx = atomicAdd(&ws[0], 1u);
+      if (idx < static_cast<uint32_t>(k)) {
+        out[idx] = lane;
+        out[k + idx] = h[0];
+      }
+      __threadfence();  // the slot before this block's ticket
+    }
   }
-  // min top limb: every thread reaches here (no early exit)
-  block_min_to<kThreads>(best, &out[2 * k + 2]);
+  // min top limb: warp, block, then one atomicMax of its complement
+  best = __reduce_min_sync(0xFFFFFFFFu, best);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t v = kNoWinner;
+#pragma unroll
+    for (int i = 0; i < kT / 32; ++i) v = min(v, warp_min[i]);
+    if (v != kNoWinner) atomicMax(&ws[1], ~v);
+    __threadfence();
+    last = atomicAdd(&ws[2], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every other block's slots and accumulators are visible
+  __threadfence();
+  const uint32_t n = __ldcg(&ws[0]);
+  const int m = n < static_cast<uint32_t>(k) ? static_cast<int>(n) : k;
+  if (threadIdx.x == 0) {
+    // order the m filled slots by lane offset (insertion sort: a batch
+    // rarely fails more than a few shares), as the reference compacts
+    for (int i = 1; i < m; ++i) {
+      const uint32_t wn = __ldcg(&out[i]);
+      const uint32_t wl = __ldcg(&out[k + i]);
+      int j = i - 1;
+      for (uint32_t o; j >= 0 && (o = __ldcg(&out[j])) > wn; --j) {
+        out[j + 1] = o;
+        out[k + j + 1] = __ldcg(&out[k + j]);
+      }
+      out[j + 1] = wn;
+      out[k + j + 1] = wl;
+    }
+  }
+  for (int i = m + threadIdx.x; i < k; i += kT) {
+    out[i] = 0;
+    out[k + i] = kNoWinner;
+  }
+  __syncthreads();  // every thread has read n
+  if (threadIdx.x == 0) {
+    out[2 * k] = n;
+    out[2 * k + 1] = 0;
+    out[2 * k + 2] = ~__ldcg(&ws[1]);
+    ws[0] = ws[1] = ws[2] = 0;
+  }
+}
+
+// An empty kernel: its launch-to-completion time is the floor under any
+// one-launch call (chip_smoke.py phase 17).
+__global__ void empty_kernel() {}
+
+int sm_count(int* err) {
+  static int sms = 0;  // queried once per process (one device per process)
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) *err = static_cast<int>(e);
+  }
+  return sms;
+}
+
+template <int kT>
+void launch_verify(const uint32_t* words, const uint32_t* limbs,
+                   unsigned long long lanes, int k, uint32_t* out,
+                   uint32_t* ws, cudaStream_t s) {
+  const unsigned int blocks =
+      lanes ? static_cast<unsigned int>((lanes + kT - 1) / kT) : 1u;
+  const Pipes p{1u, 1u << 29, 1u << 22};
+  verify_kernel<kT><<<blocks, kT, 0, s>>>(
+      reinterpret_cast<const uint4*>(words),
+      reinterpret_cast<const uint4*>(limbs), static_cast<uint32_t>(lanes),
+      out, ws, k, p);
 }
 
 int grid_blocks(unsigned long long lanes, int* err) {
@@ -343,13 +547,11 @@ int grid_blocks(unsigned long long lanes, int* err) {
   // small; queried once per process (one device per process here)
   static int wave = 0;
   if (wave == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel,
-                                                        kSearchThreads, 0);
+    const int sms = sm_count(err);
+    if (*err != 0) return 0;
+    int per_sm = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, search_kernel, kSearchThreads, 0);
     if (e != cudaSuccess) {
       *err = static_cast<int>(e);
       return 0;
@@ -400,28 +602,36 @@ int otedama_sha256d_search(const uint32_t* params, unsigned long long batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Validate `lanes` shares (lanes < 2^32): words is a device pointer to
-// [20, lanes] big-endian header words, limbs to [8, lanes] target limbs
-// (most-significant-first), out to 2k+3 words. Launches init, verify and
-// finalize on `stream` without synchronizing; returns a cudaError_t
-// (0 = every launch was accepted).
+// Validate `lanes` shares (lanes < 2^32) in ONE launch on `stream`,
+// without synchronizing: words is a device pointer to row-major [lanes, 20]
+// big-endian header words, limbs to [lanes, 8] target limbs
+// (most-significant-first), both 16-byte aligned; out to 2k+3 words, every
+// one of which the launch writes; ws to the stream's 3-word workspace, all
+// zero (the launch leaves it so). Returns a cudaError_t (0 = the launch was
+// accepted).
 int otedama_sha256d_verify(const uint32_t* words, const uint32_t* limbs,
                            unsigned long long lanes, int k, uint32_t* out,
-                           void* stream) {
-  if (k < 1 || lanes > 0xFFFFFFFFull)
+                           uint32_t* ws, void* stream) {
+  if (k < 1 || lanes > 0xFFFFFFFFull ||
+      ((reinterpret_cast<uintptr_t>(words) |
+        reinterpret_cast<uintptr_t>(limbs)) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  init_buffer<<<1, kThreads, 0, s>>>(out, k);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (lanes > 0) {
-    const unsigned int blocks =
-        static_cast<unsigned int>((lanes + kThreads - 1) / kThreads);
-    verify_kernel<<<blocks, kThreads, 0, s>>>(words, limbs, lanes, out, k);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  finalize_buffer<<<1, 1, 0, s>>>(out, k, 0u);
+  int err = 0;
+  const int sms = sm_count(&err);
+  if (err != 0) return err;
+  // 128 threads a block (a warp for each of an SM's four schedulers)
+  // while the batch gives each SM at most one block, 256 above
+  if (lanes <= 128ull * sms)
+    launch_verify<128>(words, limbs, lanes, k, out, ws, s);
+  else
+    launch_verify<kThreads>(words, limbs, lanes, k, out, ws, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the empty kernel on `stream` (one block of 32 threads).
+int otedama_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -143,21 +143,23 @@ def pipe_counts(code) -> dict[str, int]:
             "shfl": sum(b == "SHFL" for b in base)}
 
 
-def kernel_report(info: dict, kernel: str) -> list[str]:
+def kernel_report(info: dict, kernel: str, loop: bool = True) -> list[str]:
     """Lines on each function of a build whose name holds ``kernel``: its
     registers and spills (``-Xptxas -v``, when the build compiled), then
     its SASS: the whole function's instruction count and its hot loop's
-    instructions by integer pipe, and its shuffles."""
+    instructions by integer pipe, and its shuffles. With ``loop`` False
+    (a kernel whose work is straight-line code, its loops only
+    bookkeeping) the counts are the whole function's."""
     lines = [f"ptxas {fn}: {usage}"
              for fn, usage in ptxas_usage(info.get("ptxas", "")).items()
              if kernel in fn]
     for fn, code in sass_functions(info["library"], kernel).items():
-        loop = hot_loop(code)
-        part = pipe_counts(loop or code)
+        loop_code = hot_loop(code) if loop else []
+        part = pipe_counts(loop_code or code)
         lines.append(
             f"SASS {fn}: {len(code)} instructions; "
-            + (f"hot loop {part['total']} an iteration" if loop
-               else "no loop, the whole function")
+            + (f"hot loop {part['total']} an iteration" if loop_code
+               else "the whole function")
             + f": ALU pipe {part['alu']} ({part['alu'] / part['total']:.1%}),"
             f" FMA pipe (IMAD) {part['fma']} ({part['fma'] / part['total']:.1%}),"
             f" SHFL {part['shfl']}")

@@ -1,6 +1,6 @@
 """Two trees of the port's kernels on one card, in turns.
 
-    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b5]
+    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b2,b5]
         [--lanes 1024,4096,262144]
 
 ``A`` and ``B`` are directories that each hold an ``otedama_tpu_torch``
@@ -9,22 +9,31 @@ under the gitignored ``build/`` (``git archive <commit> otedama_tpu_torch
 | tar -x -C build/<name>``), or a copy with one design choice edited.
 Each tree runs in a process of its own and is driven only through its
 public wrappers (``scrypt_cuda.romix``, ``scrypt_cuda.scrypt_verify``,
-``sha256_cuda.sha256d_search``), so two designs with different C
-interfaces compare. The script builds both trees at once (each into its
-own ``build/``, printing its kernels' registers and spills), then times
+``sha256_cuda.sha256d_search``, ``sha256_cuda.sha256d_verify``), so two
+designs with different C interfaces compare. The script builds both
+trees at once (each into its own ``build/``, only the libraries the
+chosen kernels need, printing their registers and spills), then times
 them A, B, B, A with CUDA events (median of three rounds after a warm-up
 call):
 
 - B5 (``romix``, full V and ``half_v``) and the scrypt verify path
   (prologue, B5, epilogue; 4 planted failures, k = 16) at each lane count;
 - B1 (``sha256d_search``) per 2^31-nonce launch, and over eight
-  difficulty-1 jobs (about half hold a winner).
+  difficulty-1 jobs (about half hold a winner);
+- B2 (``sha256d_verify``, k = 16, 3 planted failures) per call back to
+  back at 128, 1,024, 4,096 and 2^20 shares, into a kept ``out=`` buffer
+  where the tree's wrapper takes one (as the ledger calls it), the
+  host's enqueue of one call (host clock over 200 calls, no wait), the
+  card's time a call with the host's enqueue hidden (``device_ms``),
+  and up to 4,096 shares one call alone (events around it, waited for).
 
 Every process makes the same inputs from one seed and reports a digest
 of each output (for B1 also at counts 1, 3, 256 x 37 + 1, across 2^32,
-with no lane in range, and overflowed: count and min only); the script
-fails unless A's digests equal B's. It needs a CUDA card and prints the
-card's name and power limit first and last.
+with no lane in range, and overflowed: count and min only; for B2 at
+counts 0, 1, 37, 255 and 256 x 37 + 1, a ``words20[off:]`` view, an
+overflowed batch — count and min — and a batch whose one failure is its
+last lane); the script fails unless A's digests equal B's. It needs a
+CUDA card and prints the card's name and power limit first and last.
 """
 
 from __future__ import annotations
@@ -32,11 +41,13 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import hashlib
+import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +55,7 @@ import numpy as np
 SEED = 20261017
 BATCH = 1 << 31          # B1: the engine's launch
 K = 16
+B2_LANES = (128, 1024, 4096, 1 << 20)
 
 
 # -- the child: one tree's kernels ---------------------------------------------
@@ -58,17 +70,24 @@ def _import_tree(tree: Path):
     return cuda_build, scc, sc
 
 
-def build_tree(tree: Path) -> dict:
-    """Build both libraries of a tree; their hot kernels' registers."""
+def build_tree(tree: Path, kernels: list[str]) -> dict:
+    """Build the libraries of a tree that ``kernels`` need; their hot
+    kernels' registers and spills."""
     cuda_build, scc, sc = _import_tree(tree)
     report = {}
-    for mod, kernel in ((scc, "romix_kernel"), (sc, "search_kernel")):
+    wanted = []
+    if "b5" in kernels:
+        wanted.append((scc, ("romix_kernel",)))
+    if "b1" in kernels or "b2" in kernels:
+        wanted.append((sc, ("search_kernel", "verify_kernel")))
+    for mod, names in wanted:
         _, info = cuda_build.build(mod.SOURCE, mod.HEADERS)
         fn = None
         for line in info.get("ptxas", "").splitlines():
             if "Compiling entry function" in line or "Function properties" in line:
                 fn = line.split("'")[1] if "'" in line else line.split()[-1]
-            if fn and kernel in fn and ("registers" in line or "spill" in line):
+            if (fn and any(n in fn for n in names)
+                    and ("registers" in line or "spill" in line)):
                 report.setdefault(fn, []).append(line.strip())
     return report
 
@@ -87,6 +106,48 @@ def time_ms(fn, reps: int) -> list[float]:
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / reps)
+    return out
+
+
+def device_ms(fn, reps: int) -> list[float]:
+    """As ``time_ms``, but each round starts behind a ~10 ms spin kernel
+    (``torch.cuda._sleep``) during which the host enqueues the round's
+    calls: the events then time the card's work back to back, not the
+    host's enqueue."""
+    import torch
+    fn()
+    out = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return out
+
+
+def alone_ms(fn, reps: int = 50) -> list[float]:
+    """Three rounds of the median time of one call launched alone (CUDA
+    events around it, waited for before the next): its launch-to-finish
+    latency, where back-to-back calls would overlap it."""
+    import torch
+    fn()
+    out = []
+    for _ in range(3):
+        one = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            one.append(a.elapsed_time(b))
+        out.append(statistics.median(one))
     return out
 
 
@@ -158,6 +219,60 @@ def time_tree(tree: Path, kernels: list[str], lanes_list: list[int]) -> dict:
             for _ in range(8)]
         times[f"B1 {BATCH} nonces, 8 difficulty-1 jobs"] = [
             t / len(jobs) for t in time_ms(lambda: [j() for j in jobs], 1)]
+    if "b2" in kernels:
+        rng = np.random.default_rng(SEED + 2)
+        lanes = max(B2_LANES)
+        words = on_card(rng.integers(0, 1 << 32, (lanes, 20), dtype=np.uint64))
+        passing = np.full((lanes, 8), 0xFFFFFFFF, np.uint32)
+        takes_out = "out" in inspect.signature(sc.sha256d_verify).parameters
+        out = torch.empty(2 * K + 3, dtype=torch.int32, device=dev)
+
+        def verify(w, t, count, k=K):
+            if takes_out and k == K:
+                return sc.sha256d_verify(w, t, count, k=k, out=out)
+            return sc.sha256d_verify(w, t, count, k=k)
+
+        def planted(count, rows=None):
+            """all-pass targets but zero ones (fail) at a few lanes, and
+            at every row past count, which must not count"""
+            limbs = passing[:rows or lanes].copy()
+            limbs[count:] = 0
+            limbs[[i for i in (0, count // 2, count - 1) if 0 <= i < count]] = 0
+            return on_card(limbs)
+
+        for count in (0, 1, 37, 255, 256 * 37 + 1):
+            buf = verify(words[:count + 5], planted(count, count + 5), count)
+            digests[f"B2 count {count}"] = digest(buf)
+        off = 3
+        digests["B2 words20[3:] view, 37 of 40 rows"] = digest(verify(
+            words[off:off + 40], planted(37, 43)[off:], 37))
+        limbs = on_card(rng.integers(0, 1 << 32, (1024, 8), dtype=np.uint64))
+        buf = verify(words[:1024], limbs, 1024).cpu().numpy().view(np.uint32)
+        digests["B2 overflowed (count, min)"] = hashlib.sha256(
+            buf[[2 * K, 2 * K + 2]].tobytes()).hexdigest()[:16] + f" n={buf[2 * K]}"
+        last = passing[:4096].copy()
+        last[-1] = 0
+        digests["B2 one failure, the last lane"] = digest(
+            verify(words[:4096], on_card(last), 4096))
+        for n in B2_LANES:
+            w, t = words[:n], planted(n, n)
+            reps = 20 if n > 1 << 16 else 200
+            digests[f"B2 {n} lanes"] = digest(verify(w, t, n))
+            times[f"B2 {n} lanes"] = time_ms(lambda: verify(w, t, n), reps)
+            torch.cuda.synchronize()
+            rounds = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    verify(w, t, n)
+                rounds.append((time.perf_counter() - t0) / 200 * 1e3)
+                torch.cuda.synchronize()
+            times[f"B2 {n} lanes, host enqueue"] = rounds
+            times[f"B2 {n} lanes, the card's time alone"] = device_ms(
+                lambda: verify(w, t, n), reps // 4)
+            if n <= 4096:
+                times[f"B2 {n} lanes, one call alone"] = alone_ms(
+                    lambda: verify(w, t, n))
     return {"times": times, "digests": digests}
 
 
@@ -176,7 +291,7 @@ def run_child(tree: Path, *args: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", type=Path)
-    ap.add_argument("--kernels", default="b1,b5")
+    ap.add_argument("--kernels", default="b1,b5")  # of b1, b2, b5
     ap.add_argument("--lanes", default="1024,4096,262144")
     ap.add_argument("--child", type=Path)
     ap.add_argument("--build", action="store_true")
@@ -185,7 +300,7 @@ def main(argv=None) -> int:
     lanes = [int(x) for x in args.lanes.split(",")]
     if args.child is not None:
         tree = args.child.resolve()
-        rec = (build_tree(tree) if args.build
+        rec = (build_tree(tree, kernels) if args.build
                else time_tree(tree, kernels, lanes))
         print(json.dumps(rec))
         return 0
@@ -199,7 +314,8 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA card", file=sys.stderr)
         return 2
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(lambda t: run_child(t, "--build"), (a, b)))
+        built = list(pool.map(lambda t: run_child(t, "--build", "--kernels",
+                                                  args.kernels), (a, b)))
     for tree, regs in zip((a, b), built):
         for fn, lines in regs.items():
             print(f"   {tree.name}: {fn}: " + "; ".join(lines), flush=True)

@@ -13,13 +13,16 @@ device.
 
 ``sha256d_search`` and ``sha256d_verify`` launch on a CUDA stream without
 synchronizing and return the device ``uint32[2k+3]`` buffer (an int32
-tensor, read back as uint32). Given the CPU they run the plain versions
+tensor, read back as uint32). A verify call is one kernel launch on the
+caller's row-major inputs, into an ``out=`` buffer when the caller keeps
+one. Given the CPU they run the plain versions
 (``sha256_torch.sha256d_search_buffer``, ``sha256_torch.sha256d_verify_step``);
 given CUDA they launch the kernel or raise — they never fall back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -152,9 +155,11 @@ def load_library() -> ctypes.CDLL:
         lib.otedama_sha256d_search.restype = ctypes.c_int
         lib.otedama_sha256d_verify.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.otedama_sha256d_verify.restype = ctypes.c_int
+        lib.otedama_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.otedama_empty_launch.restype = ctypes.c_int
         lib.otedama_cuda_error_string.argtypes = [ctypes.c_int]
         lib.otedama_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -222,9 +227,42 @@ def check_verify_inputs(words20: torch.Tensor, limbs: torch.Tensor,
         raise ValueError(f"count {count} outside [0, {words20.shape[0]}]")
 
 
+# the verify kernel's 3-word workspace (csrc/sha256d.cu), one for each
+# stream that launches it: launches on one stream run in order, so they
+# can share one; all zero between launches
+VERIFY_WORKSPACE_WORDS = 3
+_workspaces: dict[int, torch.Tensor] = {}
+
+
+def _verify_workspace(stream: torch.cuda.Stream) -> torch.Tensor:
+    ws = _workspaces.get(stream.cuda_stream)
+    if ws is None:
+        with _lib_lock:
+            ws = _workspaces.get(stream.cuda_stream)
+            if ws is None:
+                with torch.cuda.stream(stream):
+                    ws = torch.zeros(VERIFY_WORKSPACE_WORDS, dtype=torch.int32,
+                                     device=stream.device)
+                _workspaces[stream.cuda_stream] = ws
+    return ws
+
+
+def check_verify_layout(words20: torch.Tensor, limbs: torch.Tensor) -> None:
+    """What the verify kernel reads on the card: int32 rows, contiguous,
+    each tensor starting on a 16-byte boundary (a ``words20[off:]`` view
+    does; other views may not)."""
+    for name, x in (("words20", words20), ("limbs", limbs)):
+        if x.dtype != torch.int32 or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous int32 tensor "
+                             f"starting on a 16-byte boundary (dtype "
+                             f"{x.dtype}, contiguous {x.is_contiguous()}, "
+                             f"address {x.data_ptr():#x})")
+
+
 def sha256d_verify(words20: torch.Tensor, limbs: torch.Tensor, count: int, *,
                    k: int = K_WINNERS,
-                   stream: torch.cuda.Stream | None = None) -> torch.Tensor:
+                   stream: torch.cuda.Stream | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Validate the first ``count`` shares in ONE launch (kernel B2):
     ``words20`` int32 ``[B, 20]`` (the uint32 bit patterns of each header's
     big-endian words, ``sha256_torch.headers_to_words``), ``limbs`` int32
@@ -234,36 +272,61 @@ def sha256d_verify(words20: torch.Tensor, limbs: torch.Tensor, count: int, *,
     after reading it back: failing lane offsets, their top limbs, the true
     failure count — past ``k`` an overflow — and the min top limb).
 
-    Given CPU tensors it runs the plain version; given CUDA tensors it
-    transposes them word-major on the device and launches on ``stream``
-    (default: the current stream) without synchronizing, or raises."""
+    Given CPU tensors it runs the plain version. Given CUDA tensors (row
+    major, contiguous, 16-byte aligned: ``check_verify_layout``) it
+    launches the one kernel on ``stream`` (default: the current stream)
+    into ``out`` (default: a new tensor) without synchronizing, or
+    raises; it allocates nothing else but, once per stream, the kernel's
+    workspace."""
     check_verify_inputs(words20, limbs, count)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     device = words20.device
     if device.type == "cpu":
-        return sha256_torch.sha256d_verify_step(words20, limbs, count - 1, k=k)
+        buf = sha256_torch.sha256d_verify_step(words20, limbs, count - 1, k=k)
+        return buf if out is None else out.copy_(buf)
     if device.type != "cuda":
         raise ValueError(f"sha256d_verify runs on cuda or cpu, not {device}")
-    if words20.dtype != torch.int32 or limbs.dtype != torch.int32:
-        raise ValueError("words20 and limbs must be int32 tensors")
+    check_verify_layout(words20, limbs)
     if stream is None:
         stream = torch.cuda.current_stream(device)
+    if out is None:
+        with torch.cuda.stream(stream):
+            out = torch.empty(winner_buffer_words(k), dtype=torch.int32,
+                              device=device)
+    if (out.device != device or out.dtype != torch.int32
+            or out.shape != (winner_buffer_words(k),)
+            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous int32 tensor of 2k+3 "
+                         "words on the inputs' device")
+    ws = _verify_workspace(stream)
     lib = load_library()
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        # word-major, so a warp's loads of one word are one line
-        w = words20[:count].t().contiguous()
-        t = limbs[:count].t().contiguous()
-        out = torch.empty(winner_buffer_words(k), dtype=torch.int32,
-                          device=device)
-        rc = lib.otedama_sha256d_verify(w.data_ptr(), t.data_ptr(), count, k,
-                                        out.data_ptr(), stream.cuda_stream)
+    # entering the device costs microseconds a call: only when it is not
+    # the current one already
+    with (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        rc = lib.otedama_sha256d_verify(
+            words20.data_ptr(), limbs.data_ptr(), count, k, out.data_ptr(),
+            ws.data_ptr(), stream.cuda_stream)
     if rc != 0:
+        # a refused launch never ran; zero the workspace all the same, so
+        # that no launch after it can start from a dirty one
+        with torch.cuda.stream(stream):
+            ws.zero_()
         msg = lib.otedama_cuda_error_string(rc).decode()
         raise RuntimeError(f"sha256d_verify launch failed: CUDA error {rc} "
                            f"({msg})")
     verify_launches.add()
     return out
+
+
+def empty_launch(stream: torch.cuda.Stream) -> None:
+    """Launch the library's empty kernel on ``stream``: the floor under
+    any one-launch call's time (not counted: it computes nothing)."""
+    lib = load_library()
+    rc = lib.otedama_empty_launch(stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 class _OpTrace:

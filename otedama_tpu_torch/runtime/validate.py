@@ -105,6 +105,64 @@ class ShareCheck:
     block_number: int = 0
 
 
+class _Staging:
+    """One device dispatch's buffers, owned by one dispatch at a time: the
+    batch's header words and target limbs in pinned host memory and on
+    the card (words then limbs in one block, so one asynchronous copy
+    moves both, and the limbs start 16-byte aligned), the failure buffer
+    on the card and its pinned read-back, and the event that marks the
+    read-back done. Every buffer persists and only grows."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._host_in = self._card_in = None
+        self._host_np = None
+        self._card_out = self._host_out = None
+        self._done = torch.cuda.Event()
+
+    def inputs(self, words: np.ndarray, limbs: np.ndarray):
+        """Stage ``words`` ``[n, 20]`` and ``limbs`` ``[n, 8]`` (uint32) and
+        copy them to the card on the current stream; returns the card's
+        ``[n, 20]`` and ``[n, 8]`` int32 views."""
+        n = len(words)
+        need = (20 + 8) * n
+        if self._host_in is None or self._host_in.numel() < need:
+            size = 1 << max(12, (need - 1).bit_length())
+            self._host_in = self._card_in = None    # free the old ones first
+            self._host_in = torch.empty(size, dtype=torch.int32,
+                                        pin_memory=True)
+            self._host_np = self._host_in.numpy()
+            self._card_in = torch.empty(size, dtype=torch.int32,
+                                        device=self.device)
+        self._host_np[:20 * n] = words.view(np.int32).reshape(-1)
+        self._host_np[20 * n:need] = limbs.view(np.int32).reshape(-1)
+        self._card_in[:need].copy_(self._host_in[:need], non_blocking=True)
+        return (self._card_in[:20 * n].view(n, 20),
+                self._card_in[20 * n:need].view(n, 8))
+
+    def output(self, k: int) -> torch.Tensor:
+        """The card's ``uint32[2k+3]`` failure buffer for this dispatch."""
+        words = 2 * k + 3
+        if self._card_out is None or self._card_out.numel() < words:
+            self._card_out = torch.empty(words, dtype=torch.int32,
+                                         device=self.device)
+        return self._card_out[:words]
+
+    def read_back(self, buf: torch.Tensor) -> None:
+        """Copy ``buf`` into the pinned read-back on the current stream and
+        mark it done there."""
+        if self._host_out is None or self._host_out.numel() < buf.numel():
+            self._host_out = torch.empty(buf.numel(), dtype=torch.int32,
+                                         pin_memory=True)
+        self._host_out[:buf.numel()].copy_(buf, non_blocking=True)
+        self._done.record()
+
+    def result(self, words: int) -> np.ndarray:
+        """Wait for the read-back; a copy of its ``words`` words."""
+        self._done.synchronize()
+        return self._host_out[:words].numpy().view(np.uint32).copy()
+
+
 class ValidationBackend:
     """Batches share-validation work onto the card, with a host
     crossover, a sampled host-oracle tripwire, and the rails of the
@@ -116,10 +174,12 @@ class ValidationBackend:
     producers' batches.
 
     Device dispatches run on executor threads, several at once. They all
-    go to the backend's one CUDA stream, each reading back into its own
-    pinned buffer; the scrypt tier's V scratch is shared, so a lock holds
-    one dispatch's scrypt launches together while they are enqueued (the
-    wait for the read-back is outside it), as ``ScryptCudaBackend`` does.
+    go to the backend's one CUDA stream, each with a staging slot of its
+    own from a small pool (pinned host buffers and card buffers that
+    persist and only grow: one copy in, the kernels, one read-back); the
+    scrypt tier's V scratch is shared, so a lock holds one dispatch's
+    scrypt launches together while they are enqueued (the wait for the
+    read-back is outside it), as ``ScryptCudaBackend`` does.
     """
 
     def __init__(self, *, min_batch: int = VALIDATE_MIN_BATCH,
@@ -154,6 +214,8 @@ class ValidationBackend:
                                  f"not {self.device}")
         # the scrypt tier's (x, V) scratch, grown to the largest batch
         self._scrypt_scratch: tuple[torch.Tensor, torch.Tensor] | None = None
+        # the card dispatches' staging buffers that no dispatch holds
+        self._staging: list[_Staging] = []
         self._enqueue_lock = threading.Lock()
         # deterministic tripwire sampling: chaos runs replay exactly
         self._rng = random.Random(seed)
@@ -244,32 +306,33 @@ class ValidationBackend:
         words = sha256_torch.headers_to_words([c.header for c in checks])
         limbs = np.stack([tgt.target_to_limbs(c.target) for c in checks])
         scrypt = algorithm in _SCRYPT_ALGOS
-        cuda = self.device.type == "cuda"
+        if self.device.type != "cuda":
+            w = torch.from_numpy(words.view(np.int32))
+            t = torch.from_numpy(limbs.view(np.int32))
+            verify = scc.scrypt_verify if scrypt else sc.sha256d_verify
+            return verify(w, t, n, k=k).numpy().view(np.uint32)
+        with self._lock:
+            slot = self._staging.pop() if self._staging else _Staging(self.device)
         with contextlib.ExitStack() as ctx:
-            if cuda:
-                if scrypt:
-                    # the V scratch is shared: one dispatch enqueues at a time
-                    ctx.enter_context(self._enqueue_lock)
-                ctx.enter_context(torch.cuda.device(self.device))
-                ctx.enter_context(torch.cuda.stream(self.stream))
-            w = torch.from_numpy(words.view(np.int32)).to(self.device,
-                                                           non_blocking=True)
-            t = torch.from_numpy(limbs.view(np.int32)).to(self.device,
-                                                          non_blocking=True)
             if scrypt:
-                buf = scc.scrypt_verify(
-                    w, t, n, k=k, scratch=self._scratch_for(n) if cuda else None,
-                    stream=self.stream)
+                # the V scratch is shared: one dispatch enqueues at a time
+                ctx.enter_context(self._enqueue_lock)
+            ctx.enter_context(torch.cuda.device(self.device))
+            ctx.enter_context(torch.cuda.stream(self.stream))
+            w, t = slot.inputs(words, limbs)
+            if scrypt:
+                buf = scc.scrypt_verify(w, t, n, k=k,
+                                        scratch=self._scratch_for(n),
+                                        stream=self.stream)
             else:
-                buf = sc.sha256d_verify(w, t, n, k=k, stream=self.stream)
-            if not cuda:
-                return buf.numpy().view(np.uint32)
-            host = torch.empty(buf.shape, dtype=torch.int32, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        done.synchronize()
-        return host.numpy().view(np.uint32)
+                buf = sc.sha256d_verify(w, t, n, k=k, stream=self.stream,
+                                        out=slot.output(k))
+            slot.read_back(buf)
+        result = slot.result(sc.winner_buffer_words(k))
+        # a dispatch that raised keeps its slot: its copies may still run
+        with self._lock:
+            self._staging.append(slot)
+        return result
 
     async def _verify_device_group(
         self, algorithm: str, checks: list[ShareCheck]

@@ -1,0 +1,113 @@
+"""Port parity, engine level: the drain of in-flight searches after a job
+change, against the JAX package's ``MiningEngine``.
+
+A stub backend holds the first job's three pipelined calls until the job
+has changed; the second of them raises and the third holds a winner. The
+reference's drain logs the failure and still emits the third call's
+share, and so must the port's; both engines then go on mining the new
+job. Shares are compared as (job, extranonce2, ntime, nonce, digest,
+difficulty).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+
+import pytest
+
+from otedama_tpu.engine.engine import EngineConfig as RefEngineConfig
+from otedama_tpu.engine.engine import MiningEngine as RefMiningEngine
+from otedama_tpu.engine.types import Job as RefJob
+from otedama_tpu.runtime import search as ref_search
+from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
+from otedama_tpu_torch.engine.types import Job
+from otedama_tpu_torch.runtime import search
+
+BATCH = 64
+DEPTH = 3           # three searches in flight: two are left to drain
+
+
+def _job_fields(job_id: str, ntime: int) -> dict:
+    return dict(job_id=job_id, prev_hash=bytes(32), coinb1=b"\x01" * 8,
+                coinb2=b"\x02" * 8, merkle_branch=[], version=0x20000000,
+                nbits=0x1D00FFFF, ntime=ntime, extranonce1=b"\xaa\xbb",
+                extranonce2_size=4, share_target=(1 << 256) - 1,
+                algorithm="sha256d")
+
+
+class GatedStub:
+    """The first ``DEPTH`` calls (the first job's pipeline) wait for
+    ``gate``; of those the second raises and the third returns a winner at
+    its base + 5. The next three calls (the second job) return a winner at
+    their base; later calls return none. Winners carry their real digest."""
+
+    name = "stub"
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.gate = threading.Event()
+        self.lock = threading.Lock()
+        self.calls = 0
+
+    def search(self, jc, base, count):
+        with self.lock:
+            i = self.calls
+            self.calls += 1
+        if i < DEPTH:
+            assert self.gate.wait(30.0), "the test never opened the gate"
+        if i == 1:
+            raise RuntimeError("injected: device call failed")
+        nonces = {2: [base + 5], 3: [base], 4: [base], 5: [base]}.get(i, [])
+        winners = [self.mod.Winner(n, jc.digest_for(n)) for n in nonces]
+        return self.mod.SearchResult(winners, count, 0xFFFFFFFF)
+
+
+async def _run(engine, stub: GatedStub, job_cls) -> set:
+    found = []
+
+    async def on_share(share):
+        found.append(share)
+
+    engine.on_share = on_share
+    await engine.start()
+    try:
+        engine.set_job(job_cls(**_job_fields("first", 1_700_000_000)))
+        deadline = time.monotonic() + 10.0
+        while stub.calls < DEPTH:
+            assert time.monotonic() < deadline, "the pipeline never filled"
+            await asyncio.sleep(0.005)
+        engine.set_job(job_cls(**_job_fields("second", 1_700_000_060)))
+        stub.gate.set()
+        # keeps mining: the second job's calls go on past its three winners
+        # (a call is dispatched once the call DEPTH before it is consumed)
+        while stub.calls < 2 * DEPTH + 4:
+            assert time.monotonic() < deadline, f"{stub.calls} calls"
+            await asyncio.sleep(0.005)
+    finally:
+        await engine.stop()
+    return {(s.job_id, s.extranonce2, s.ntime, s.nonce_word, s.digest,
+             s.difficulty) for s in found}
+
+
+@pytest.mark.asyncio
+async def test_a_failed_call_in_the_drain_keeps_the_winners_behind_it():
+    port_stub, ref_stub = GatedStub(search), GatedStub(ref_search)
+    port = MiningEngine({"stub": port_stub}, config=EngineConfig(
+        batch_size=BATCH, auto_batch=False, pipeline_depth=DEPTH,
+        searcher_restart_backoff=0.02))
+    ref = RefMiningEngine({"stub": ref_stub}, config=RefEngineConfig(
+        batch_size=BATCH, auto_batch=False, pipeline_depth=DEPTH,
+        searcher_restart_backoff=0.02))
+    got = await _run(port, port_stub, Job)
+    want = await _run(ref, ref_stub, RefJob)
+    en2 = b"\x00" * 4
+    assert ("first", en2, 1_700_000_000, 2 * BATCH + 5) in {s[:4] for s in want}
+    assert got == want
+    assert sorted((s[0], s[3]) for s in got) == [
+        ("first", 2 * BATCH + 5), ("second", 0), ("second", BATCH),
+        ("second", 2 * BATCH)]
+    # the drain neither crashed the port's searcher nor lost its hashes
+    assert port.searcher_restarts == 0
+    assert port.stats.hashes >= 6 * BATCH

@@ -143,6 +143,40 @@ def test_plain_sha256d_verify_empty_batch():
         sc.sha256d_verify(_t(words), _t(limbs), 6, k=8)
 
 
+def test_sha256d_verify_writes_into_a_kept_out_buffer(sha_batch):
+    """``out=`` (the ledger's kept buffer) receives the same words the
+    call returns, from a ``words20[off:]`` view as well."""
+    headers, targets = sha_batch
+    words, limbs = _arrays(headers, targets)
+    w, t = _t(words), _t(limbs)
+    for off in (0, 3):
+        out = torch.full((2 * 8 + 3,), 7, dtype=torch.int32)
+        got = sc.sha256d_verify(w[off:], t[off:], 37 - off, k=8, out=out)
+        assert got is out
+        want = sj.sha256d_verify_step(
+            jnp.asarray(words[off:]), jnp.asarray(limbs[off:]),
+            jnp.uint32(36 - off), n=37 - off, k=8)
+        assert _u32(out).tolist() == np.asarray(want).tolist()
+
+
+def test_verify_layout_takes_only_aligned_contiguous_int32_rows():
+    """What the card's verify kernel reads in place: contiguous int32
+    rows starting on a 16-byte boundary; a ``words20[off:]`` view is one
+    (80-byte rows), a view one word into a buffer, a strided view and
+    int64 are not."""
+    words = torch.zeros((9, 20), dtype=torch.int32)
+    limbs = torch.zeros((9, 8), dtype=torch.int32)
+    sc.check_verify_layout(words, limbs)
+    sc.check_verify_layout(words[3:], limbs[3:])
+    flat = torch.zeros(20 * 8 + 4, dtype=torch.int32)
+    assert flat.data_ptr() % 16 == 0
+    for bad in ((flat[1:161].view(8, 20), limbs[:8]),
+                (words[:4], limbs[::2][:4]),
+                (words, limbs.long())):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            sc.check_verify_layout(*bad)
+
+
 def test_plain_scrypt_verify_equals_reference_and_hashlib(scrypt_batch):
     headers, targets = scrypt_batch
     words, limbs = _arrays(headers, targets)

@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: ``python3 chip_smoke.py``.
 
 Builds the port's kernels from the sources in this checkout (one nvcc per
-source, started together), drives the solo sha256d and scrypt main paths
-and the pool ledger's share validation through the entry points a user
-calls, and checks every phase; any failure exits non-zero. Phases:
+source, started together), drives the solo sha256d and scrypt main paths,
+the pool ledger's share validation, the supervised engine, warm
+algorithm switching and the chain RPC client through the entry points a
+user calls, and checks every phase; any failure exits non-zero. Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    registers and spills of the hot kernels (``-Xptxas -v``) and their hot
@@ -77,7 +78,35 @@ calls, and checks every phase; any failure exits non-zero. Phases:
    any one-launch call (an empty kernel, and B2 on one lane); the scrypt
    verify path at 1,024 and 4,096 lanes beside its bound; where
    ``verify_batch`` on the card overtakes host validation, by batch size
-   (the crossover that ``VALIDATE_MIN_BATCH`` sets).
+   (the crossover that ``VALIDATE_MIN_BATCH`` sets);
+18. engine supervision: a ``MiningEngine`` over two ``CudaBackend``s of
+   the one card (``cuda0``, ``cuda1``, each its own stream), one 2^31-nonce
+   launch a group, share target 2^228, tight watchdog knobs. An injected 8 s ``device.call`` hang quarantines
+   ``cuda1`` within its deadline (health ``degraded``, one active device)
+   while ``cuda0`` keeps mining; ``cuda1`` comes back through a B1 probe
+   verified against hashlib; the engine's rate with both devices, with
+   one and with both again; then a ``corrupt`` window whose probes fail
+   the oracle until it closes, and ``stop()`` with a call hung for good
+   (bounded by the drain timeout, the call abandoned). Every share is
+   re-hashed with hashlib, none twice, the devices' extranonce2 blocks
+   disjoint; one probe's launches, its bisect included;
+19. a real device-side stall: each call of ``cuda1`` first enqueues a ~4 s
+   ``torch.cuda._sleep`` spin on its stream; the watchdog fires, the first
+   probe waits behind the spin and the device reintegrates once it has
+   drained; ``probe_cuda_devices`` answers for the card meanwhile;
+20. warm switching: sha256d -> scrypt -> sha256d -> scrypt -> sha256d
+   through ``switch_algorithm``, each backend prepared by
+   ``prepare_backend_async`` while the old one mines; each switch's
+   downtime, ``memory_allocated`` back within 256 MiB once scrypt's V is
+   released, the second round's peak within 256 MiB of the first's, a
+   closed backend refuses calls, every share re-hashed with hashlib (and
+   hashlib.scrypt); a scrypt probe through B5 on 256 lanes verified
+   against hashlib.scrypt;
+21. the chain RPC client: ``Application`` in solo mode on the card with
+   ``pool.chain_rpc_url`` set to a loopback JSON-RPC node backed by a
+   difficulty-1 ``MockChainClient``, until 2 blocks are accepted through
+   ``submitblock``, each re-hashed with hashlib; the connection pool's
+   keep-alive reuse.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -95,6 +124,7 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -1152,17 +1182,29 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
             enqueue.append((time.perf_counter() - t0) * 1e4)
         torch.cuda.synchronize(dev)
         before = sc.verify_launches.value
-        try:
-            ran = device_kernels(call)
-        except Exception as exc:        # the profiler is optional here
-            ran = f"not measured ({type(exc).__name__}: {exc})"
-        launches = (sc.verify_launches.value - before) / 10
-        if isinstance(ran, dict):
+        dropped = ""
+        for attempt in range(2):
+            try:
+                ran = device_kernels(call)
+            except Exception as exc:        # the profiler is optional here
+                ran = f"not measured ({type(exc).__name__}: {exc})"
+            if not isinstance(ran, dict):
+                break
             kernels = {n: c / 10 for n, c in ran.items()}
-            check(len(kernels) == 1 and "verify_kernel" in next(iter(kernels))
-                  and next(iter(kernels.values())) == 1,
+            only_b2 = (len(kernels) == 1
+                       and "verify_kernel" in next(iter(kernels)))
+            if only_b2 and next(iter(kernels.values())) < 1 and not attempt:
+                # the profiler lost kernel records (it saw fewer kernels
+                # than the wrapper launched): measure once more
+                dropped = f" (the first profile dropped records: {kernels})"
+                continue
+            break
+        launches = (sc.verify_launches.value - before) / (10 * (attempt + 1))
+        if isinstance(ran, dict):
+            check(only_b2 and next(iter(kernels.values())) == 1,
                   f"B2 call ran {kernels} on the card, not one verify kernel")
-            ran = f"one verify kernel and nothing else a call ({next(iter(kernels))})"
+            ran = (f"one verify kernel and nothing else a call "
+                   f"({next(iter(kernels))}){dropped}")
         elif ran is None:
             ran = "not measured (torch.profiler saw no device activity)"
         t0 = time.monotonic()
@@ -1263,6 +1305,648 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
         "path": "pool ledger on_share_batch (phase 16)",
     }
     return record, romix_ledger, max_err["scrypt"]
+
+
+# -- phases 18-21: supervision, a real stall, warm switching, the RPC client --
+
+# tight supervision knobs: a blown deadline within seconds on the card.
+# One 2^31-nonce launch a group: with the default groups (two launches,
+# two groups in flight) a call's duration includes its wait behind the
+# group before it on the stream, and doubles while a relayout leaves the
+# cancelled searcher's groups queued, so a 3x deadline quarantined a
+# healthy device on the card
+SUPERVISION = dict(watchdog_floor=2.0, watchdog_multiplier=3.0,
+                   watchdog_min_samples=1, watchdog_first_deadline=10.0,
+                   probe_timeout=5.0, probe_backoff=2.0, probe_backoff_max=4.0,
+                   max_probes=20, drain_timeout=3.0, pipeline_depth=1)
+SUPERVISED_TARGET = 1 << 228  # ~8 winners a 2^31-nonce launch, under k = 16
+SCRYPT_SHARE_TARGET = 1 << 240  # ~1 scrypt share per 2^16 hashes
+MIB = 1 << 20
+
+
+async def until(cond, timeout: float, what: str) -> float:
+    """Poll ``cond`` every 5 ms; the instant it held."""
+    t_end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < t_end, f"timed out after {timeout:.0f} s "
+              f"waiting for {what}")
+        await asyncio.sleep(0.005)
+    return time.monotonic()
+
+
+class Timeline:
+    """Polled every 5 ms on the engine's loop: the instants at which the
+    engine's hash count moves (once a drained device call) and at which
+    each device's supervision state changes."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.moves: list[tuple[float, int]] = []
+        self.states: list[tuple[float, str, str]] = []
+        self._task = asyncio.get_running_loop().create_task(self._poll())
+
+    async def _poll(self):
+        last_h, last_state = None, {}
+        while True:
+            now, h = time.monotonic(), self.engine.stats.hashes
+            if h != last_h:
+                self.moves.append((now, h))
+                last_h = h
+            for name, sup in list(self.engine.supervisors.items()):
+                if last_state.get(name) != sup.state.value:
+                    last_state[name] = sup.state.value
+                    self.states.append((now, name, sup.state.value))
+            await asyncio.sleep(0.005)
+
+    def stop(self):
+        self._task.cancel()
+
+    def entries(self, name: str, state: str, t0: float, t1: float) -> list:
+        return [t for t, n, s in self.states
+                if n == name and s == state and t0 <= t <= t1]
+
+    def rate(self, t0: float, t1: float) -> str:
+        """The engine's H/s between the first and the last drained call in
+        [t0, t1]."""
+        inside = [(t, h) for t, h in self.moves if t0 <= t <= t1]
+        if len(inside) < 2:
+            return f"not measured ({len(inside)} drained calls)"
+        (ta, ha), (tb, hb) = inside[0], inside[-1]
+        return (f"{(hb - ha) / (tb - ta) / 1e9:.3f} GH/s ({hb - ha} hashes "
+                f"in {tb - ta:.2f} s, {len(inside)} drained calls)")
+
+
+class Harness:
+    """A card backend as the engine sees it, with what the harness needs
+    around it: each group call's header (its job and extranonce2) is
+    recorded by device, and while ``stalls_left`` > 0 a search or group
+    call first enqueues a ``torch.cuda._sleep`` spin of ``stall_cycles``
+    on the backend's stream (a real device-side stall; precompile never
+    spins)."""
+
+    def __init__(self, backend, calls: list, stall_cycles: int = 0):
+        self.backend, self.calls = backend, calls
+        self.name = backend.name
+        self.preferred_batch = backend.preferred_batch
+        self.stall_cycles, self.stalls_left = stall_cycles, 0
+        self.spins: list = []          # (enqueued at, event after the spin)
+        self._lock = threading.Lock()
+
+    def _stall(self):
+        import torch
+
+        with self._lock:
+            if self.stalls_left <= 0:
+                return
+            self.stalls_left -= 1
+        b = self.backend
+        with torch.cuda.device(b.device), torch.cuda.stream(b.stream):
+            torch.cuda._sleep(self.stall_cycles)
+            done = torch.cuda.Event()
+            done.record(b.stream)
+        self.spins.append((time.monotonic(), done))
+
+    def search_group(self, jc, batches):
+        self.calls.append((self.name, jc.header76))
+        self._stall()
+        return self.backend.search_group(jc, batches)
+
+    def search(self, jc, base, count):
+        self._stall()
+        return self.backend.search(jc, base, count)
+
+    def precompile(self, jc=None, count=None):
+        return self.backend.precompile(jc, count)
+
+    def close(self, timeout: float = 30.0):
+        self.backend.close(timeout)
+
+
+def smoke_job(job_id: str, algorithm: str = "sha256d",
+              share_target: int = SUPERVISED_TARGET):
+    from otedama_tpu_torch.engine.types import Job
+
+    return Job(job_id=job_id, prev_hash=hashlib.sha256(job_id.encode()).digest(),
+               coinb1=bytes.fromhex("01000000010000000000000000"),
+               coinb2=bytes.fromhex("ffffffff0100f2052a01000000"),
+               merkle_branch=[], version=0x20000000, nbits=0x1D00FFFF,
+               ntime=1_700_000_000, extranonce1=b"", extranonce2_size=4,
+               share_target=share_target, algorithm=algorithm)
+
+
+def check_shares(shares, jobs: dict) -> int:
+    """Every share re-hashed with hashlib (sha256d or scrypt, by its job's
+    algorithm): the digest the engine reported, at or under its job's
+    share target, and no (job, extranonce2, nonce) twice. Returns the
+    count."""
+    from otedama_tpu_torch.engine.jobs import header_from_share
+
+    seen = set()
+    for s in shares:
+        key = (s.job_id, s.extranonce2, s.nonce_word)
+        check(key not in seen, f"duplicate share {key}")
+        seen.add(key)
+        job = jobs[s.job_id]
+        header = header_from_share(job, s.extranonce2, s.ntime, s.nonce_word)
+        if job.algorithm == "scrypt":
+            value = scrypt_value(header)
+        else:
+            value = int.from_bytes(
+                hashlib.sha256(hashlib.sha256(header).digest()).digest(),
+                "little")
+        check(value.to_bytes(32, "little") == s.digest
+              and value <= job.share_target,
+              f"share {key} fails its hashlib re-check")
+    return len(seen)
+
+
+def supervision_phases(dev, card: str, clock_mhz: float) -> dict:
+    """Phases 18 (supervision under injected faults) and 19 (a real
+    device-side stall). Returns the B1 launches of their runs."""
+    import torch
+
+    from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
+    from otedama_tpu_torch.engine.jobs import job_constants
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.runtime import supervision
+    from otedama_tpu_torch.runtime.search import CudaBackend
+    from otedama_tpu_torch.utils import faults
+
+    def card_backends(calls, stall_cycles=0):
+        out = {}
+        for i in range(2):
+            b = CudaBackend(dev)
+            b.name = f"cuda{i}"       # the class's name is "cuda"
+            b.precompile(count=MAIN_BATCH)
+            out[b.name] = Harness(b, calls, stall_cycles)
+        return out
+
+    out = {}
+
+    # -- 18. supervision on the card ---------------------------------------------
+    phase("18 supervision on the card: cuda0 and cuda1 (two backends, one "
+          "card), an injected hang, quarantine, verified probes")
+    calls, shares, jobs = [], [], {}
+    spans = {}      # job -> the calls made while both devices mined it
+
+    async def on_share(s):
+        shares.append(s)
+
+    async def run18():
+        engine = MiningEngine(card_backends(calls), on_share=on_share,
+                              config=EngineConfig(**SUPERVISION))
+
+        def new_job(job_id):
+            jobs[job_id] = smoke_job(job_id)
+            engine.set_job(jobs[job_id])
+
+        await engine.start()
+        tl = Timeline(engine)
+        sup1 = engine.supervisors["cuda1"]
+        try:
+            new_job("s18-a")
+            await until(lambda: all(s.call_hist.count >= 3 for s in
+                                    engine.supervisors.values()), 60,
+                        "three calls on each device")
+            t_both = time.monotonic()
+            await asyncio.sleep(4.0)
+            deadline = sup1.deadline(MAIN_BATCH)
+            call_s = max(sup.call_hist.sum / sup.call_hist.count
+                         for sup in engine.supervisors.values())
+            inj = faults.FaultInjector(SEED).delay(
+                "device.call:cuda1", seconds=8.0, window=(0.0, 3.0))
+            relayouts = engine.snapshot()["relayouts"]
+            with faults.active(inj):
+                t_act = time.monotonic()
+                spans["s18-a"] = (0, len(calls))
+                t_q = await until(lambda: not sup1.can_mine, 30,
+                                  "cuda1's quarantine")
+                await until(lambda: engine.snapshot()["relayouts"] > relayouts,
+                            30, "the relayout")
+                relayouts = engine.snapshot()["relayouts"]
+                new_job("s18-q")
+                health = engine.device_health()
+                check(health["status"] == "degraded"
+                      and health["active_devices"] == 1,
+                      f"health while cuda1 is out: {health}")
+                h0 = engine.stats.devices["cuda0"].hashes
+                t_r = await until(lambda: sup1.state.value == "healthy", 60,
+                                  "cuda1's reintegration")
+                check(engine.stats.devices["cuda0"].hashes > h0,
+                      "cuda0 stopped mining while cuda1 was out")
+            await until(lambda: engine.snapshot()["relayouts"] > relayouts,
+                        30, "the relayout")
+            new_job("s18-b")
+            b_start, t_b = len(calls), time.monotonic()
+            await asyncio.sleep(4.0)
+            t_after = time.monotonic()
+            check(engine.snapshot()["relayouts"] >= 2, "fewer than 2 relayouts")
+            window_end = t_act + 3.0
+            probes_after = tl.entries("cuda1", "probing", window_end, t_r)
+            check(1 <= len(probes_after) <= 2,
+                  f"{len(probes_after)} probes after the fault window closed")
+            check(t_q - t_act <= deadline + call_s + 1.0,
+                  f"quarantine {t_q - t_act:.2f} s after the fault, deadline "
+                  f"{deadline:.2f} s, a call {call_s:.2f} s")
+            print(f"   deadline {deadline:.2f} s (a call {call_s:.2f} s on the "
+                  f"shared card); cuda1 quarantined {t_q - t_act:.2f} s "
+                  f"after the fault began, reintegrated {t_r - window_end:.2f}"
+                  f" s after its window closed ({len(probes_after)} probe(s) "
+                  f"after it, {sup1.probes} in all); relayouts "
+                  f"{engine.snapshot()['relayouts']}", flush=True)
+            print(f"   rate, both devices: {tl.rate(t_both, t_act)}",
+                  flush=True)
+            print(f"   rate, cuda0 alone: {tl.rate(t_q, t_r)}", flush=True)
+            print(f"   rate, both again: {tl.rate(t_b + 1.0, t_after)}",
+                  flush=True)
+            out["quarantine_s"] = t_q - t_act
+            out["reintegration_s"] = t_r - window_end
+
+            # corrupt results: the probes must fail the host oracle until
+            # the window closes
+            engine.config.probe_backoff = 0.5
+            engine.config.probe_backoff_max = 1.0
+            corrupt_s = 6.0
+            inj = (faults.FaultInjector(SEED + 1)
+                   .delay("device.call:cuda1", seconds=8.0, once=True)
+                   .corrupt("device.call:cuda1", window=(0.0, corrupt_s)))
+            probes0 = sup1.probes
+            with faults.active(inj):
+                t_act = time.monotonic()
+                spans["s18-b"] = (b_start, len(calls))
+                await until(lambda: not sup1.can_mine, 30, "quarantine")
+                new_job("s18-c")
+                await until(lambda: sup1.probes_failed >= 1, 30,
+                            "a corrupt probe rejected")
+                check("oracle" in (sup1.last_error or ""),
+                      f"probe failure: {sup1.last_error}")
+                t_r = await until(lambda: sup1.state.value == "healthy", 60,
+                                  "reintegration after the corrupt window")
+            check(t_r >= t_act + corrupt_s,
+                  "a probe verified inside the corrupt window")
+            print(f"   corrupt window {corrupt_s:.0f} s: "
+                  f"{sup1.probes - probes0 - 1} probe(s) failed the host "
+                  f"oracle, reintegrated {t_r - t_act - corrupt_s:.2f} s after "
+                  "the window closed", flush=True)
+
+            # stop() with a call hung for good
+            inj = faults.FaultInjector(SEED + 2).delay("device.call:cuda*",
+                                                       seconds=12.0)
+            with faults.active(inj):
+                await until(lambda: inj.rules[0].fires >= 1, 30, "a hung call")
+                abandoned = engine.snapshot()["abandoned_calls"]
+                t0 = time.monotonic()
+                await engine.stop()
+                stop_s = time.monotonic() - t0
+            abandoned = engine.snapshot()["abandoned_calls"] - abandoned
+            check(stop_s <= SUPERVISION["drain_timeout"] + 1.0,
+                  f"stop() took {stop_s:.2f} s with a hung call")
+            check(abandoned >= 1, "stop() abandoned no call")
+            print(f"   stop() with a hung call: {stop_s:.2f} s (drain timeout"
+                  f" {SUPERVISION['drain_timeout']:.0f} s), {abandoned} "
+                  "call(s) abandoned by it", flush=True)
+        finally:
+            tl.stop()
+            await engine.close()
+        return engine
+
+    sc.launches.reset()
+    engine = asyncio.run(run18())
+    out["launches"] = sc.launches.value
+    n = check_shares(shares, jobs)
+    # while both devices mined a job, their extranonce2 blocks are disjoint
+    # (a respawned searcher starts its block again, so a job that spans a
+    # relayout is mined twice over in part: the engine emits its shares once)
+    headers = {}
+    for job_id in spans:
+        for en2 in range(1024):
+            e = en2.to_bytes(4, "big")
+            headers[job_constants(jobs[job_id], e).header76] = (job_id, en2)
+    for job_id, (i0, i1) in spans.items():
+        by_dev = {name: {headers[h][1] for d, h in calls[i0:i1]
+                         if d == name and headers.get(h, ("",))[0] == job_id}
+                  for name in ("cuda0", "cuda1")}
+        check(all(by_dev.values()) and not by_dev["cuda0"] & by_dev["cuda1"],
+              f"job {job_id}: extranonce2 blocks {by_dev}")
+        print(f"   job {job_id}: extranonce2 cuda0 {sorted(by_dev['cuda0'])}, "
+              f"cuda1 {sorted(by_dev['cuda1'])}: disjoint", flush=True)
+    print(f"   {n} shares re-hashed with hashlib, at or under their targets, "
+          f"none twice; B1 launches {out['launches']}", flush=True)
+
+    # one probe's launches, overflow included
+    pb = CudaBackend(dev)
+    sc.launches.reset()
+    jc, res, base, count = engine._probe_search(pb)
+    probe_launches = sc.launches.value
+    expect = supervision.expected_probe_winners("sha256d", jc, base, count)
+    check(supervision.verify_probe_results("sha256d", jc, res, base, count),
+          "the sha256d probe failed the hashlib oracle")
+    pb.close()
+    print(f"   a sha256d probe: {probe_launches} B1 launches (1 warmup of "
+          f"{MAIN_BATCH}, 1 of {count} nonces, {probe_launches - 2} for the "
+          f"bisect: {len(expect)} winners against k = {sc.K_WINNERS}), "
+          "verified against hashlib; " + card, flush=True)
+    out["probe_launches"] = probe_launches
+
+    # -- 19. a real stall on the card -----------------------------------------------
+    phase("19 a real stall: a torch.cuda._sleep spin on cuda1's stream")
+    spin_s = 4.0
+    calls.clear()
+
+    async def run19():
+        loop = asyncio.get_running_loop()
+        backends = card_backends(calls, int(spin_s * clock_mhz * 1e6))
+        stall = backends["cuda1"]
+        engine = MiningEngine(
+            backends, config=EngineConfig(**{**SUPERVISION,
+                                             "probe_backoff": 0.5}))
+        await engine.start()
+        tl = Timeline(engine)
+        sup1 = engine.supervisors["cuda1"]
+        try:
+            engine.set_job(smoke_job("s19"))
+            await until(lambda: all(s.call_hist.count >= 3 for s in
+                                    engine.supervisors.values()), 60,
+                        "three calls on each device")
+            deadline = sup1.deadline(MAIN_BATCH)
+            stall.stalls_left = 1
+            t_arm = time.monotonic()
+            t_q = await until(lambda: not sup1.can_mine, 30,
+                              "the watchdog on the spin")
+            t0 = time.monotonic()
+            alive = await loop.run_in_executor(
+                None, supervision.probe_cuda_devices, [torch.device("cuda")],
+                10.0)
+            census_s = time.monotonic() - t0
+            check(alive == [torch.device("cuda")], f"census: {alive}")
+            h0 = engine.stats.devices["cuda0"].hashes
+            spun_at, spin_done = stall.spins[0]
+            t_spun = await until(spin_done.query, 30, "the spin's end")
+            t_r = await until(lambda: sup1.state.value == "healthy", 60,
+                              "reintegration after the spin")
+            check(engine.stats.devices["cuda0"].hashes > h0,
+                  "cuda0 stopped mining during the stall")
+            t_p = tl.entries("cuda1", "probing", t_q, t_r)
+            check(sup1.probes == 1 and t_p and t_p[0] < t_spun <= t_r,
+                  f"probes {sup1.probes}, probing at {t_p}, spin end "
+                  f"{t_spun - t_arm:.2f} s, healthy {t_r - t_arm:.2f} s")
+            print(f"   deadline {deadline:.2f} s; spin of {spin_s:.0f} s "
+                  f"enqueued {spun_at - t_arm:.2f} s after arming; watchdog "
+                  f"fired {t_q - spun_at:.2f} s after it; the probe began "
+                  f"{t_p[0] - spun_at:.2f} s after it and waited behind the "
+                  f"spin, which ended at {t_spun - spun_at:.2f} s; "
+                  f"reintegrated at {t_r - spun_at:.2f} s; "
+                  f"probe_cuda_devices([cuda]) answered in {census_s:.3f} s "
+                  "during the stall; " + card, flush=True)
+            out["stall"] = dict(watchdog_s=t_q - spun_at,
+                                reintegrated_s=t_r - spun_at)
+        finally:
+            tl.stop()
+            await engine.close()
+
+    sc.launches.reset()
+    asyncio.run(run19())
+    out["launches"] += sc.launches.value
+    print(f"   B1 launches {sc.launches.value}", flush=True)
+    return out
+
+
+def switch_phase(dev, card: str) -> dict:
+    """Phase 20: warm switching sha256d <-> scrypt on the card. Returns the
+    B1 and B5 launches of its run and the scrypt probe's."""
+    import torch
+
+    from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
+    from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.runtime import supervision
+    from otedama_tpu_torch.runtime.search import BackendClosedError
+
+    phase("20 warm switching on the card: sha256d -> scrypt -> sha256d -> "
+          "scrypt -> sha256d")
+    manager = AlgorithmManager("cuda", device=str(dev))
+    shares, jobs, rounds = [], {}, []
+    out = {}
+
+    async def on_share(s):
+        shares.append(s)
+
+    def memory():
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    async def run20():
+        sha = manager.prepare_backend("sha256d", warm_count=MAIN_BATCH)
+        engine = MiningEngine({sha.name: sha}, on_share=on_share,
+                              config=EngineConfig())
+
+        def new_job(job_id, algorithm):
+            jobs[job_id] = smoke_job(
+                job_id, algorithm,
+                SCRYPT_SHARE_TARGET if algorithm == "scrypt"
+                else SUPERVISED_TARGET)
+            engine.set_job(jobs[job_id])
+
+        await engine.start()
+        try:
+            new_job("s20-sha0", "sha256d")
+            await asyncio.sleep(2.0)
+            for rnd in (1, 2):
+                before = memory()
+                torch.cuda.reset_peak_memory_stats(dev)
+                scrypt = await manager.prepare_backend_async(
+                    "scrypt", warm_count=engine.planned_batch)
+                down_in = await engine.switch_algorithm(
+                    "scrypt", {scrypt.name: scrypt})
+                new_job(f"s20-scrypt{rnd}", "scrypt")
+                await asyncio.sleep(2.0)
+                sha = await manager.prepare_backend_async(
+                    "sha256d", warm_count=engine.planned_batch)
+                down_out = await engine.switch_algorithm(
+                    "sha256d", {sha.name: sha})
+                check(engine.snapshot()["last_switch_downtime_seconds"]
+                      == round(down_out, 6), "downtime not in the snapshot")
+                after, peak = memory(), torch.cuda.max_memory_allocated(dev)
+                try:
+                    scrypt.search(supervision.probe_job_constants("scrypt"),
+                                  0, 8)
+                except BackendClosedError:
+                    pass
+                else:
+                    check(False, "a closed scrypt backend took a call")
+                new_job(f"s20-sha{rnd}", "sha256d")
+                await asyncio.sleep(2.0)
+                rounds.append(dict(before=before, after=after, peak=peak,
+                                   down_in=down_in, down_out=down_out))
+                check(abs(after - before) <= 256 * MIB,
+                      f"round {rnd}: {after / MIB:.0f} MiB allocated after "
+                      f"the switch away from scrypt, {before / MIB:.0f} before")
+                check(max(down_in, down_out) < 0.5,
+                      f"round {rnd}: downtime {down_in:.4f} / {down_out:.4f} s")
+        finally:
+            await engine.close()
+        return engine
+
+    sc.launches.reset()
+    scc.romix_launches.reset()
+    engine = asyncio.run(run20())
+    out["b1_launches"], out["b5_launches"] = (sc.launches.value,
+                                              scc.romix_launches.value)
+    check(rounds[1]["peak"] <= rounds[0]["peak"] + 256 * MIB,
+          f"peak {rounds[1]['peak'] / MIB:.0f} MiB in round 2 against "
+          f"{rounds[0]['peak'] / MIB:.0f} in round 1")
+    n = check_shares(shares, jobs)
+    for rnd, r in enumerate(rounds, 1):
+        print(f"   round {rnd}: downtime into scrypt {r['down_in'] * 1e3:.2f} "
+              f"ms, back to sha256d {r['down_out'] * 1e3:.2f} ms; "
+              f"memory_allocated {r['before'] / MIB:.1f} MiB before, "
+              f"{r['after'] / MIB:.1f} after, max_memory_allocated "
+              f"{r['peak'] / MIB:.1f}", flush=True)
+    per_job = {job_id: sum(s.job_id == job_id for s in shares)
+               for job_id in jobs}
+    check(all(per_job.values()), f"a side mined no share: {per_job}")
+    print(f"   shares by side: {per_job}", flush=True)
+    print(f"   {n} shares re-hashed with hashlib (sha256d and scrypt); B1 "
+          f"launches {out['b1_launches']}, B5 launches {out['b5_launches']};"
+          f" closed backends refused calls; " + card, flush=True)
+
+    # a scrypt probe through B5 on 256 lanes, against the hashlib oracle
+    probe = manager.backend_for("scrypt")
+    scc.romix_launches.reset()
+    jc, res, base, count = engine._probe_search(probe)
+    out["probe_launches"] = scc.romix_launches.value
+    expect = supervision.expected_probe_winners("scrypt", jc, base, count)
+    check(supervision.verify_probe_results("scrypt", jc, res, base, count),
+          "the scrypt probe failed the hashlib oracle")
+    probe.close()
+    print(f"   a scrypt probe: {out['probe_launches']} B5 launches (warmup "
+          f"{engine.planned_batch(probe)} lanes, then {count} lanes, "
+          f"{len(expect)} winners against k = 16), verified against "
+          "hashlib.scrypt", flush=True)
+    return out
+
+
+class MockNode:
+    """A bitcoind-style JSON-RPC node on a loopback port, answering
+    ``getblocktemplate``, ``submitblock``, ``getdifficulty`` and
+    ``getblockheader`` from a ``MockChainClient``."""
+
+    def __init__(self, chain):
+        import http.server
+
+        self.chain, self.calls, self.lock = chain, [], threading.Lock()
+        node = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"      # keep-alive
+
+            def do_POST(self):
+                req = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                body = json.dumps({"id": req["id"], "error": None,
+                                   "result": node.answer(req)}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}/"
+
+    def answer(self, req):
+        method, params, chain = req["method"], req["params"], self.chain
+        with self.lock:
+            self.calls.append(method)
+            if method == "getblocktemplate":
+                t = asyncio.run(chain.get_block_template())
+                return {"version": t.version, "height": t.height,
+                        "previousblockhash": t.prev_hash[::-1].hex(),
+                        "bits": f"{t.nbits:08x}", "curtime": t.ntime,
+                        "coinbasevalue": t.reward, "transactions": []}
+            if method == "submitblock":
+                outcome = asyncio.run(chain.submit_block(
+                    bytes.fromhex(params[0])))
+                return None if outcome.accepted else outcome.reason
+            if method == "getdifficulty":
+                return asyncio.run(chain.get_network_difficulty())
+            if method == "getblockheader":
+                return {"confirmations": asyncio.run(
+                    chain.get_confirmations(params[0]))}
+        raise ValueError(f"unknown method {method}")
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+def rpc_phase(dev, card: str) -> int:
+    """Phase 21: the solo Application mining on the card against a node
+    through BitcoinRPCClient. Returns the B1 launches of its run."""
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import BitcoinRPCClient, MockChainClient
+
+    phase("21 the chain RPC client: solo Application on the card against a "
+          "loopback JSON-RPC node, difficulty 1")
+    chain = MockChainClient(nbits=0x1D00FFFF)
+    node = MockNode(chain)
+    cfg = AppConfig()
+    cfg.mining.device = str(dev)
+    cfg.work.enabled = True
+    cfg.work.poll_seconds = 0.5
+    cfg.pool.chain_rpc_url = node.url
+    cfg.pool.chain_rpc_user = "smoke"
+    cfg.pool.chain_rpc_password = "smoke"
+    app = Application(cfg)
+
+    async def run21():
+        await app.start()
+        try:
+            check(isinstance(app.chain, BitcoinRPCClient), "no RPC client")
+            t0 = time.monotonic()
+            while len(chain.submitted) < 2:
+                check(time.monotonic() < t0 + MAIN_PATH_BOUND_S,
+                      f"{len(chain.submitted)} blocks in "
+                      f"{MAIN_PATH_BOUND_S:.0f} s")
+                check(not any(t.done() and not t.cancelled() and t.exception()
+                              for t in app._tasks), "a background task failed")
+                await asyncio.sleep(0.05)
+            snap = app.snapshot()
+            check("failures" in snap and "recovery" in snap,
+                  "supervision missing from the snapshot")
+            return time.monotonic() - t0, app.chain.pool_snapshot()
+        finally:
+            await app.stop()
+            node.close()
+
+    sc.launches.reset()
+    seconds, pool = asyncio.run(run21())
+    target = tgt.bits_to_target(0x1D00FFFF)
+    for height, header, block_hash in chain.submitted:
+        d = hashlib.sha256(hashlib.sha256(header).digest()).digest()
+        check(int.from_bytes(d, "little") <= target
+              and d[::-1].hex() == block_hash,
+              f"block {height} fails its hashlib re-check")
+        print(f"   block {height} accepted through submitblock: {block_hash}",
+              flush=True)
+    check(pool["reused"] > 0, f"no keep-alive reuse: {pool}")
+    print(f"   {len(chain.submitted)} blocks in {seconds:.2f} s; node calls "
+          + ", ".join(f"{m} {node.calls.count(m)}" for m in sorted(set(node.calls)))
+          + f"; connection pool {pool}; B1 launches {sc.launches.value}; "
+          + card, flush=True)
+    return sc.launches.value
+
 
 
 def main() -> int:
@@ -1599,6 +2283,20 @@ def main() -> int:
     b5["launches"] += romix_ledger
     b5["max_abs_err"] = max(b5["max_abs_err"], verify_err)
     kernels.append(b2_record)
+
+    supervised = supervision_phases(dev, card, clock_mhz)
+    switched = switch_phase(dev, card)
+    rpc_launches = rpc_phase(dev, card)
+    b1 = kernels[0]
+    b1["path"] += (f": {b1['launches']} launches; supervised engine, two "
+                   f"backends, quarantine and probes (phases 18-19): "
+                   f"{supervised['launches']}; warm switch (phase 20): "
+                   f"{switched['b1_launches']}; solo through the chain RPC "
+                   f"client (phase 21): {rpc_launches}")
+    b1["launches"] += (supervised["launches"] + switched["b1_launches"]
+                       + rpc_launches)
+    b5["path"] += (f"; warm switch (phase 20): {switched['b5_launches']}")
+    b5["launches"] += switched["b5_launches"]
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)

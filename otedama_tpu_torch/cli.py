@@ -88,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("solo", help="solo-mine against the mock chain")
+    p = sub.add_parser("solo", help="solo-mine against the node at "
+                       "pool.chain_rpc_url, else the mock chain")
     p.add_argument("-a", "--algorithm", default=None,
                    help="sha256d (default) | sha256 | scrypt")
     p.add_argument("-b", "--backend", default=None,

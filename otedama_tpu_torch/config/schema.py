@@ -87,8 +87,23 @@ class MiningConfig:
     winner_depth: int = 0
     # launches per engine group; 0 = the engine default (3)
     pipeline_depth: int = 0
-    # bound on stop()'s wait for in-flight device calls
+    # -- device supervision (engine watchdog / quarantine / probes) ----------
+    # bound on stop()/switch drains of in-flight device calls: calls
+    # still running past it are abandoned so a wedged device can never
+    # hang process exit or an algorithm switch
     drain_timeout: float = 30.0
+    # watchdog deadline = per-(backend, call key) call-duration EWMA x
+    # this multiplier (floored by watchdog_floor); <= 0 disables the
+    # watchdog. A blown deadline quarantines the device; survivors
+    # re-shard its extranonce2 block and keep mining
+    watchdog_multiplier: float = 8.0
+    watchdog_floor: float = 5.0
+    # deadline for calls whose key has no EWMA yet (a first call may
+    # build the kernel)
+    watchdog_first_deadline: float = 1800.0
+    # consecutive failed reintegration probes before a quarantined
+    # device is marked DEAD (0 = probe forever)
+    max_probes: int = 8
 
 
 @dataclasses.dataclass
@@ -210,6 +225,12 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("mining.pipeline_depth out of range (0 = auto, 1..64)")
     if cfg.mining.drain_timeout <= 0:
         errors.append("mining.drain_timeout must be positive")
+    if cfg.mining.watchdog_floor <= 0:
+        errors.append("mining.watchdog_floor must be positive")
+    if cfg.mining.watchdog_first_deadline <= 0:
+        errors.append("mining.watchdog_first_deadline must be positive")
+    if cfg.mining.max_probes < 0:
+        errors.append("mining.max_probes must be >= 0")
     if cfg.work.poll_seconds <= 0:
         errors.append("work.poll_seconds must be positive")
     try:

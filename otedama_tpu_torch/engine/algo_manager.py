@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import logging
 import time
 
@@ -67,12 +68,37 @@ class AlgorithmManager:
                         warm_count=None, **kwargs):
         """Build AND warm a backend (kernel built and loaded, one launch of
         ``warm_count`` nonces — an int, or a callable(backend) -> int such
-        as the engine's ``planned_batch``)."""
+        as the engine's ``planned_batch``): handing it to
+        ``MiningEngine.switch_algorithm`` then costs one batch boundary,
+        not a build. A backend whose warmup fails is closed (it may hold
+        device memory) and the failure raised."""
         backend = self.backend_for(algorithm, kind, **kwargs)
-        count = warm_count(backend) if callable(warm_count) else warm_count
-        seconds = backend.precompile(count=count)
+        try:
+            count = warm_count(backend) if callable(warm_count) else warm_count
+            seconds = backend.precompile(count=count)
+        except Exception:
+            close = getattr(backend, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:
+                    log.exception("closing %s after a failed warmup also "
+                                  "failed", backend.name)
+            raise
         log.info("prepared %s/%s in %.2fs", algorithm, backend.name, seconds)
         return backend
+
+    async def prepare_backend_async(self, algorithm: str,
+                                    kind: str | None = None,
+                                    warm_count=None, **kwargs):
+        """Double-buffered switching: build and warm OFF the event loop
+        while the engine keeps mining the current algorithm."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            None,
+            functools.partial(self.prepare_backend, algorithm, kind,
+                              warm_count=warm_count, **kwargs),
+        )
 
     def benchmark(
         self, algorithm: str, kind: str | None = None,

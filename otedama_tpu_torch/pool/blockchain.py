@@ -1,7 +1,8 @@
-"""Block templates, the chain-client protocol and the in-process mock chain
-(counterpart of ``otedama_tpu/pool/blockchain.py`` ``BlockTemplate``,
-``SubmitOutcome``, ``BlockchainClient`` and ``MockChainClient``, without
-the reference's fault-injection gates).
+"""Block templates, the chain-client protocol, the in-process mock chain
+and the JSON-RPC client of a bitcoind-compatible node (counterpart of
+``otedama_tpu/pool/blockchain.py`` ``BlockTemplate``, ``SubmitOutcome``,
+``BlockchainClient``, ``MockChainClient`` and ``BitcoinRPCClient``,
+without the reference's ``chain.rpc`` fault-injection gates).
 
 The mock is a regtest-style chain: it hands out templates, verifies
 submitted headers against its own nbits, and advances height.
@@ -9,13 +10,18 @@ submitted headers against its own nbits, and advances height.
 
 from __future__ import annotations
 
+import asyncio
+import base64
 import dataclasses
+import json
 import logging
 import struct
 import time
 from typing import Protocol
+from urllib.parse import urlparse
 
 from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.utils.netpool import HttpConnectionPool
 from otedama_tpu_torch.utils.sha256_host import sha256d
 
 log = logging.getLogger("otedama.pool.chain")
@@ -132,3 +138,107 @@ class MockChainClient:
 
     async def get_network_difficulty(self) -> float:
         return tgt.target_to_difficulty(tgt.bits_to_target(self.nbits))
+
+
+class BitcoinRPCClient:
+    """JSON-RPC client for bitcoind-compatible nodes. Blocking HTTP runs
+    in the loop's default executor, so the event loop never blocks, over
+    a keep-alive connection pool (``utils/netpool``)."""
+
+    def __init__(self, url: str, user: str = "", password: str = "",
+                 timeout: float = 10.0):
+        self.url = url
+        self.timeout = timeout
+        self._auth = None
+        if user:
+            self._auth = "Basic " + base64.b64encode(
+                f"{user}:{password}".encode()
+            ).decode()
+        self._id = 0
+        # keep-alive pool: template polls and block submits must not pay
+        # TCP connect + slow start per call
+        self._pool = HttpConnectionPool(url, timeout=timeout)
+        u = urlparse(url)
+        # hosted RPC providers key auth on the query string — keep it
+        self._path = (u.path or "/") + (f"?{u.query}" if u.query else "")
+
+    # response-read replays are safe for reads/polls, NOT for submits
+    # (a replayed submitblock answers "duplicate", which would mis-report
+    # a succeeded block as rejected) — see netpool.request's policy
+    _IDEMPOTENT = frozenset({
+        "getblocktemplate", "getnetworkinfo", "getdifficulty",
+        "getblockheader", "getblockcount", "getblockchaininfo",
+        "getmininginfo", "getblock",
+    })
+
+    async def _rpc(self, method: str, params: list | None = None):
+        self._id += 1
+        payload = json.dumps(
+            {"jsonrpc": "1.0", "id": self._id, "method": method,
+             "params": params or []}
+        ).encode()
+
+        def do_request():
+            headers = {"Content-Type": "application/json"}
+            if self._auth:
+                headers["Authorization"] = self._auth
+            resp = self._pool.request(
+                "POST", self._path, body=payload, headers=headers,
+                idempotent=method in self._IDEMPOTENT,
+            )
+            # bitcoind ships JSON-RPC errors WITH an HTTP error status —
+            # prefer the JSON error object; a proxy's HTML error page
+            # (502 from nginx etc.) must surface the STATUS, not a
+            # JSONDecodeError
+            try:
+                return json.loads(resp.body)
+            except ValueError:
+                raise RuntimeError(
+                    f"rpc http {resp.status}: non-JSON response"
+                ) from None
+
+        obj = await asyncio.get_running_loop().run_in_executor(None, do_request)
+        if obj.get("error"):
+            raise RuntimeError(f"rpc {method}: {obj['error']}")
+        return obj["result"]
+
+    def close(self) -> None:
+        """Release pooled keep-alive sockets (app teardown)."""
+        self._pool.close()
+
+    def pool_snapshot(self) -> dict:
+        """Connection-pool telemetry."""
+        return self._pool.snapshot()
+
+    async def get_block_template(self) -> BlockTemplate:
+        t = await self._rpc("getblocktemplate", [{"rules": ["segwit"]}])
+        # the raw template fields the job builder consumes: the coinbase
+        # halves stay empty, so TemplateSource builds the coinbase around
+        # the configured payout script
+        return BlockTemplate(
+            height=int(t["height"]),
+            prev_hash=bytes.fromhex(t["previousblockhash"])[::-1],
+            coinb1=b"",
+            coinb2=b"",
+            merkle_branch=[],
+            version=int(t["version"]),
+            nbits=int(t["bits"], 16),
+            ntime=int(t["curtime"]),
+            reward=int(t.get("coinbasevalue", 0)),
+        )
+
+    async def submit_block(self, header: bytes) -> SubmitOutcome:
+        res = await self._rpc("submitblock", [header.hex()])
+        if res is None:
+            return SubmitOutcome(True, block_hash=sha256d(header)[::-1].hex())
+        return SubmitOutcome(False, reason=str(res))
+
+    async def get_confirmations(self, block_hash: str) -> int:
+        try:
+            block = await self._rpc("getblock", [block_hash])
+            return int(block.get("confirmations", 0))
+        except RuntimeError:
+            return -1
+
+    async def get_network_difficulty(self) -> float:
+        return float(await self._rpc("getdifficulty"))

@@ -256,8 +256,59 @@ def _cuda_device(device, who: str) -> torch.device:
     return device
 
 
+class BackendClosedError(RuntimeError):
+    """A call on a card backend after its ``close()``."""
+
+
+class _CardBackend:
+    """What the card backends share: the device, the backend's own stream
+    (the engine launches from executor threads, so device and stream are
+    explicit, never thread defaults), and the lock under which a call
+    enqueues its launches and under which ``close()`` takes effect."""
+
+    def _init_card(self, who: str) -> None:
+        self.device = _cuda_device(self.device, who)
+        self.stream = torch.cuda.Stream(device=self.device)
+        self._lock = threading.Lock()
+        self._closed = False
+
+    @contextlib.contextmanager
+    def _enqueue(self):
+        """Held while a call enqueues its launches; refuses a closed
+        backend, so a call abandoned by the engine that lands after
+        ``close()`` raises instead of allocating its scratch again."""
+        with self._lock:
+            if self._closed:
+                raise BackendClosedError(f"{self.name} is closed")
+            yield
+
+    def _release(self) -> None:
+        """Drop the device memory the backend holds between calls."""
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Refuse further calls, then free the backend's device memory
+        once every launch enqueued before it has finished: its scratch
+        must not be freed under a kernel still running on it. A stream
+        still busy after ``timeout`` seconds (a wedged card) keeps the
+        memory held, and that is logged."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        t_end = time.monotonic() + timeout
+        while not self.stream.query():
+            if time.monotonic() > t_end:
+                log.warning("%s: its stream is still busy %.0f s after "
+                            "close(); its device memory stays held",
+                            self.name, timeout)
+                return
+            time.sleep(0.005)
+        self._release()
+        torch.cuda.empty_cache()
+
+
 def _launch_rows(device, stream, windows, k: int, launch_one,
-                 lock=contextlib.nullcontext()) -> np.ndarray:
+                 lock) -> np.ndarray:
     """Issue ``launch_one(base, count, out_row)`` for every window on
     ``stream`` into rows of one device buffer, then one pinned read-back
     and one event wait (outside ``lock``). Returns uint32 ``[windows,
@@ -277,20 +328,18 @@ def _launch_rows(device, stream, windows, k: int, launch_one,
     return host.numpy().view(np.uint32)
 
 
-class CudaBackend(_Sha256dBackend):
+class CudaBackend(_CardBackend, _Sha256dBackend):
     """The card's hot path: the CUDA search kernel with exact on-device
     winner selection. One launch covers a whole batch (up to 2^32 nonces),
-    so the engine drives it with 2^31-nonce launches, grouped."""
+    so the engine drives it with 2^31-nonce launches, grouped. Between
+    calls it holds only its stream; ``close()`` refuses further calls."""
 
     name = "cuda"
     preferred_batch = 1 << 31
 
     def __init__(self, device="cuda", winner_depth: int | None = None):
         super().__init__(device, winner_depth)
-        self.device = _cuda_device(self.device, "CudaBackend")
-        # the backend's own stream: the engine launches from executor
-        # threads, so device and stream are explicit, never thread defaults
-        self.stream = torch.cuda.Stream(device=self.device)
+        self._init_card("CudaBackend")
 
     def precompile(self, jc: JobConstants | None = None,
                    count: int | None = None) -> float:
@@ -306,7 +355,8 @@ class CudaBackend(_Sha256dBackend):
                               k=self.k, device=self.device,
                               stream=self.stream, out=out)
 
-        return _launch_rows(self.device, self.stream, windows, self.k, launch)
+        return _launch_rows(self.device, self.stream, windows, self.k, launch,
+                            self._enqueue())
 
 
 class TorchBackend(_Sha256dBackend):
@@ -388,7 +438,7 @@ class _ScryptBackend(_BufferBackend):
                             min((r.best_hash_hi for r in results), default=_M32))
 
 
-class ScryptCudaBackend(_ScryptBackend):
+class ScryptCudaBackend(_CardBackend, _ScryptBackend):
     """scrypt on the card, the counterpart of ``ScryptPallasBackend``.
 
     ``tier``: ``romix`` (the default; the whole ROMix in one kernel, B5),
@@ -404,7 +454,8 @@ class ScryptCudaBackend(_ScryptBackend):
     they share the scratch safely because every launch goes to the
     backend's one stream, which runs them in order, and a lock keeps one
     call's launches together while it enqueues them (the wait for the
-    result happens outside the lock)."""
+    result happens outside the lock). ``close()`` frees V and the row
+    scratch once the launches queued on the stream have finished."""
 
     def __init__(self, device="cuda", winner_depth: int | None = None,
                  chunk: int = SCRYPT_CUDA_CHUNK, tier: str = "romix"):
@@ -412,12 +463,13 @@ class ScryptCudaBackend(_ScryptBackend):
             raise ValueError(f"unknown scrypt tier {tier!r} (known: "
                              f"{scc.TIERS})")
         super().__init__(device, winner_depth, chunk)
-        self.device = _cuda_device(self.device, "ScryptCudaBackend")
+        self._init_card("ScryptCudaBackend")
         self.tier = tier
         self.name = "scrypt-cuda" if tier == "romix" else f"scrypt-cuda-{tier}"
-        self.stream = torch.cuda.Stream(device=self.device)
-        self._lock = threading.Lock()
         self._scratch: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def _release(self) -> None:
+        self._scratch = None
 
     def _scratch_for_chunk(self) -> tuple[torch.Tensor, torch.Tensor]:
         if self._scratch is None:
@@ -438,7 +490,7 @@ class ScryptCudaBackend(_ScryptBackend):
         search of ``count`` nonces."""
         t0 = time.monotonic()
         scc.load_library()
-        with self._lock:
+        with self._enqueue():
             self._scratch_for_chunk()
         return time.monotonic() - t0 + warmup_backend(self, jc, count)
 
@@ -454,7 +506,7 @@ class ScryptCudaBackend(_ScryptBackend):
                               scratch=self._scratch_for_chunk())
 
         return _launch_rows(self.device, self.stream, windows, self.k, launch,
-                            lock=self._lock)
+                            self._enqueue())
 
 
 class ScryptTorchBackend(_ScryptBackend):

@@ -113,6 +113,10 @@ REGISTRY: dict[str, FaultPoint] = _reg(
                "algorithm", DEVICE),
     FaultPoint("pool.submitter.submit", "pool/submitter.py retry loop",
                "", STEP),
+    FaultPoint("engine.batch", "engine/engine.py search loop",
+               "backend name", STEP),
+    FaultPoint("device.call", "engine/engine.py _call_device_sync",
+               "backend name", DEVICE),
 )
 
 

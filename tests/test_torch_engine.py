@@ -108,6 +108,9 @@ async def test_a_failed_call_in_the_drain_keeps_the_winners_behind_it():
     assert sorted((s[0], s[3]) for s in got) == [
         ("first", 2 * BATCH + 5), ("second", 0), ("second", BATCH),
         ("second", 2 * BATCH)]
-    # the drain neither crashed the port's searcher nor lost its hashes
-    assert port.searcher_restarts == 0
+    # the drain crashed neither engine's searcher, and the port lost none
+    # of its hashes
+    assert port.supervisors["stub"].searcher_restarts == 0
+    assert (port.supervisors["stub"].searcher_restarts
+            == ref.supervisors["stub"].searcher_restarts)
     assert port.stats.hashes >= 6 * BATCH

@@ -178,7 +178,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "otedama_tpu_torch.utils.pow_host",
             "otedama_tpu_torch.runtime.validate",
             "otedama_tpu_torch.pool.manager",
-            "otedama_tpu_torch.db.database"} <= set(modules)
+            "otedama_tpu_torch.db.database",
+            "otedama_tpu_torch.runtime.supervision",
+            "otedama_tpu_torch.runtime.failure",
+            "otedama_tpu_torch.utils.netpool"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -4,8 +4,10 @@
 Builds the port's kernels from the sources in this checkout (one nvcc per
 source, started together), drives the solo sha256d and scrypt main paths,
 the pool ledger's share validation, the supervised engine, warm
-algorithm switching and the chain RPC client through the entry points a
-user calls, and checks every phase; any failure exits non-zero. Phases:
+algorithm switching, the chain RPC client and the stratum pool and client
+(pool mode with local mining, vardiff, upstream failover, a scrypt pool)
+through the entry points a user calls, and checks every phase; any
+failure exits non-zero. Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    registers and spills of the hot kernels (``-Xptxas -v``) and their hot
@@ -106,7 +108,38 @@ user calls, and checks every phase; any failure exits non-zero. Phases:
    ``pool.chain_rpc_url`` set to a loopback JSON-RPC node backed by a
    difficulty-1 ``MockChainClient``, until 2 blocks are accepted through
    ``submitblock``, each re-hashed with hashlib; the connection pool's
-   keep-alive reuse.
+   keep-alive reuse;
+22. pool mode: ``Application`` as ``cli pool --mine`` sets it
+   (``stratum.port=0``, ``pool.database=":memory:"``, stratum difficulty
+   1, a difficulty-1 mock chain), B1 mining at the engine's defaults
+   through the loopback ``StratumClient``; once it mines, 1,000 raw-wire
+   miners connect at 500 a second (the per-IP caps lifted in
+   ``ServerConfig.ddos``, ``RLIMIT_NOFILE`` raised to its hard limit),
+   are retargeted to 1e-7 through the server's retarget path and submit
+   3 host-pre-mined shares each over 10 s. Client-seen accepts = the
+   ledger hook's deliveries = share rows, per worker; every share
+   re-hashed with hashlib; no honest share rejected; a card block on the
+   chain and ``distribute_block``'s credits; the share-accept latency of
+   the server, the card's client and the fleet; the engine's rate under
+   the fleet beside phase 5's;
+23. vardiff on the card: a ``StratumServer`` at difficulty 1/64 (~32
+   winners a 2^31 launch) with ``VardiffConfig(retarget_seconds=2,
+   target_share_seconds=0.5)``, B1 through a ``StratumClient``, a job a
+   second for 12 s: overflowed launches bisect and every window's count
+   word equals the winners returned; the difficulty climbs at most x4 a
+   retarget and each retarget reaches the next job; credits at the
+   previous difficulty and low-difficulty rejects counted and explained;
+24. upstream failover: the app mining on B1 to the primary of two
+   loopback ``StratumServer`` upstreams sharing a session secret; the
+   primary stops, ``check_all`` selects the backup and
+   ``_connect_upstream`` carries the resume token (the extranonce1 kept);
+   the engine's hash count keeps moving; the time from the stop to the
+   first accept at the backup;
+25. a scrypt pool: phase 22's app with ``mining.algorithm = "scrypt"``
+   (the ``romix`` tier, B5) at share difficulty 2^-16 for 10 s: every
+   share digested by ``hashlib.scrypt`` on the validation executor and
+   re-hashed here; the books equal the client's accepts; the mock
+   chain's refusals counted; V's peak memory.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -117,6 +150,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import logging
@@ -232,6 +266,21 @@ class HashWatch:
 
     def stop(self):
         self._task.cancel()
+
+    def between(self, t0: float, t1: float) -> tuple[float, str]:
+        """(H/s, its description) between the first and the last drained
+        call in [t0, t1]."""
+        inside = [(t, h) for t, h in self.moves if t0 <= t <= t1]
+        check(len(inside) >= 3, "the engine's hash count barely moved "
+              f"between {t0:.1f} and {t1:.1f}")
+        (ta, ha), (tb, hb) = inside[0], inside[-1]
+        gaps = sorted(b[0] - a[0] for a, b in zip(inside, inside[1:]))
+        rate = (hb - ha) / (tb - ta)
+        return rate, (f"{rate / 1e9:.3f} GH/s: {hb - ha} hashes in "
+                      f"{tb - ta:.3f} s between the first and the last of "
+                      f"{len(inside)} drained calls; gaps median "
+                      f"{gaps[len(gaps) // 2] * 1e3:.1f} ms, max "
+                      f"{gaps[-1] * 1e3:.1f} ms")
 
     def summary(self) -> tuple[float, str]:
         """(steady H/s, its description): the rate, the gaps between
@@ -1949,6 +1998,805 @@ def rpc_phase(dev, card: str) -> int:
 
 
 
+# -- phases 22-25: the stratum pool and client on the card ----------------------
+
+FLEET = 1000                  # raw-wire miners (the reference's stratum bench)
+FLEET_CONNECT_RATE = 500.0    # connects a second
+FLEET_SHARES = 3              # pre-mined shares a miner
+FLEET_WINDOW_S = 10.0         # the submit window
+# the fleet's sessions are retargeted to this difficulty (below vardiff's
+# 0.001 floor) through the server's own retarget path, so the host
+# pre-mines its 3,000 shares in a few seconds (about 430 hashes a share)
+FLEET_DIFFICULTY = 1e-7
+POOL_WORKER = "card.pool"
+VARDIFF_START = 1 / 64        # ~32 winners a 2^31-nonce launch: over k = 16
+FAILOVER_DIFFICULTY = 1 / 16  # ~8 winners a 2^31-nonce launch
+SCRYPT_POOL_DIFFICULTY = 2.0 ** -16   # one scrypt share per 2^16 hashes
+SCRYPT_POOL_WINDOW_S = 10.0
+
+
+def quantiles(values) -> str:
+    if not values:
+        return "none"
+    v = sorted(values)
+    return (f"p50 {v[len(v) // 2] * 1e3:.2f} ms, p99 "
+            f"{v[min(len(v) - 1, int(len(v) * 0.99))] * 1e3:.2f} ms, max "
+            f"{v[-1] * 1e3:.2f} ms (n={len(v)})")
+
+
+def sha256d_value(header: bytes) -> int:
+    return int.from_bytes(hashlib.sha256(hashlib.sha256(header).digest())
+                          .digest(), "little")
+
+
+def check_accepted(shares) -> None:
+    """Every AcceptedShare the pool booked, re-hashed with hashlib (sha256d
+    or scrypt by its algorithm): the digest the server computed, at or
+    under the target of the difficulty it was credited at."""
+    from otedama_tpu_torch.kernels import target as tgt
+
+    for s in shares:
+        value = (scrypt_value(s.header) if s.algorithm == "scrypt"
+                 else sha256d_value(s.header))
+        check(value.to_bytes(32, "little") == s.digest
+              and value <= tgt.difficulty_to_target(s.difficulty),
+              f"share of {s.worker_user} {s.job_id}/{s.nonce_word:#010x} "
+              "fails its hashlib re-check")
+
+
+def pool_app(algorithm: str, difficulty: float, chain, dev):
+    """An ``Application`` configured as ``cli pool --mine`` sets it, on the
+    card, on a loopback port with a throwaway ledger."""
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+
+    cfg = AppConfig()
+    cfg.pool.enabled = True
+    cfg.stratum.enabled = True
+    cfg.mining.enabled = True
+    cfg.mining.device = str(dev)
+    cfg.mining.algorithm = algorithm
+    cfg.mining.worker_name = POOL_WORKER
+    cfg.pool.database = ":memory:"
+    cfg.stratum.host = "127.0.0.1"
+    cfg.stratum.port = 0
+    cfg.stratum.initial_difficulty = difficulty
+    cfg.work.enabled = True
+    cfg.work.poll_seconds = 0.5
+    return Application(cfg, chain=chain)
+
+
+class Booked:
+    """The server's share hook, counted: each share the ledger booked (its
+    ``on_share`` returned), by worker."""
+
+    def __init__(self, server, on_share):
+        self.shares, self.on_share = [], on_share
+        server.on_share = self
+
+    async def __call__(self, share):
+        await self.on_share(share)
+        self.shares.append(share)
+
+    def by_worker(self) -> dict:
+        out: dict = {}
+        for s in self.shares:
+            out[s.worker_user] = out.get(s.worker_user, 0) + 1
+        return out
+
+
+class Gate:
+    """The engine's share hook with a cut: once closed, shares found are
+    counted and not submitted, so that when no submit is in flight every
+    share the card submitted has its verdict (stopping the engine instead
+    cancels a submit whose line is already on the wire: booked, its
+    verdict never read)."""
+
+    def __init__(self, engine):
+        self.on_share, self.open, self.inflight, self.held = (
+            engine.on_share, True, 0, 0)
+        engine.on_share = self
+
+    async def __call__(self, share):
+        if not self.open:
+            self.held += 1
+            return
+        self.inflight += 1
+        try:
+            await self.on_share(share)
+        finally:
+            self.inflight -= 1
+
+    async def cut(self) -> None:
+        self.open = False
+        await until(lambda: self.inflight == 0, 60.0, "submits in flight")
+
+
+async def engine_running(app, timeout: float = MAIN_PATH_BOUND_S) -> None:
+    t_end = time.monotonic() + timeout
+    while app.engine.state.value != "running":
+        check(time.monotonic() < t_end, "the engine never started")
+        check(not any(t.done() and not t.cancelled() and t.exception()
+                      for t in app._tasks),
+              "a background task failed before the engine started")
+        await asyncio.sleep(0.05)
+
+
+def lift_ip_caps(server) -> None:
+    """A loopback fleet is one IP: lift the per-IP caps in the server's
+    ``ServerConfig.ddos``, as the reference's stratum bench does, and keep
+    the guard on the path. The loopback miner's live slot carries over."""
+    from otedama_tpu_torch.security.ddos import DDoSConfig, DDoSProtection
+
+    server.config = dataclasses.replace(server.config, ddos=DDoSConfig(
+        max_concurrent_per_ip=1 << 20, connects_per_minute=1e12,
+        bytes_per_window=1 << 40))
+    server.ddos = DDoSProtection(server.config.ddos)
+    for _ in server.sessions:
+        check(server.ddos.allow_connect("127.0.0.1"), "ddos guard refused")
+
+
+def raise_fd_limit(need: int) -> str:
+    """The fleet's descriptors: the soft limit raised to the hard one, and
+    a loud failure when the hard limit is too low (the fleet is never cut
+    to fit)."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    check(hard == resource.RLIM_INFINITY or hard >= need,
+          f"RLIMIT_NOFILE hard limit {hard} < the {need} descriptors "
+          f"{FLEET} loopback connections need")
+    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return f"RLIMIT_NOFILE soft {soft} -> {hard}, hard {hard} (need {need})"
+
+
+class FleetMiner:
+    """One raw-wire stratum miner: a reader task resolves its requests'
+    futures by id; notifications are read and dropped."""
+
+    def __init__(self, index: int):
+        self.worker = f"fleet.w{index:04d}"
+        self.pending: dict = {}
+        self.job = None
+        self.extranonce1 = b""
+        self.results: list = []     # (accepted, error, seconds)
+        self.shares: list = []      # (extranonce2, nonce)
+
+    async def connect(self, port: int, sp) -> None:
+        self.reader, self.writer = await asyncio.open_connection("127.0.0.1",
+                                                                 port)
+        self.task = asyncio.get_running_loop().create_task(self._read(sp))
+        self.next_id = 1
+        sub = await self.call(sp, "mining.subscribe", ["fleet"])
+        self.extranonce1 = bytes.fromhex(sub[1])
+        ok = await self.call(sp, "mining.authorize", [self.worker, "x"])
+        check(ok is True, f"{self.worker}: authorize refused")
+
+    async def _read(self, sp) -> None:
+        while True:
+            line = await self.reader.readline()
+            if not line:
+                return
+            msg = sp.decode_line(line)
+            if msg.method == "mining.notify" and self.job is None:
+                self.job = sp.job_from_notify(msg.params)
+            elif msg.is_response:
+                fut = self.pending.pop(msg.id, None)
+                if fut is not None and not fut.done():
+                    fut.set_result(msg)
+
+    async def call(self, sp, method, params):
+        msg_id, self.next_id = self.next_id, self.next_id + 1
+        fut = asyncio.get_running_loop().create_future()
+        self.pending[msg_id] = fut
+        self.writer.write(sp.encode_line(sp.Message(id=msg_id, method=method,
+                                                    params=params)))
+        msg = await asyncio.wait_for(fut, 30.0)
+        if msg.error:
+            raise sp.StratumError(*(list(msg.error) + [None] * 3)[:3])
+        return msg.result
+
+    async def submit(self, sp, en2: bytes, nonce: int) -> None:
+        t0 = time.monotonic()
+        params = [self.worker, self.job.job_id, en2.hex(),
+                  f"{self.job.ntime:08x}", f"{nonce:08x}"]
+        try:
+            result = await self.call(sp, "mining.submit", params)
+            self.results.append((result is True, None, time.monotonic() - t0))
+        except sp.StratumError as e:
+            self.results.append((False, e.as_triple(), time.monotonic() - t0))
+
+    def close(self) -> None:
+        self.task.cancel()
+        self.writer.close()
+
+
+def premine(miners, difficulty: float) -> int:
+    """Each miner's shares on its job at ``difficulty``, on the host:
+    extranonce2 = the share's index, the first winning nonce. Returns the
+    hashes it took."""
+    from otedama_tpu_torch.engine.jobs import build_header_prefix
+    from otedama_tpu_torch.kernels import target as tgt
+
+    target = tgt.difficulty_to_target(difficulty)
+    hashes = 0
+    for m in miners:
+        job = dataclasses.replace(m.job, extranonce1=m.extranonce1)
+        for j in range(FLEET_SHARES):
+            en2 = struct.pack(">I", j)
+            prefix = build_header_prefix(job, en2)
+            nonce = 0
+            while sha256d_value(prefix + struct.pack(">I", nonce)) > target:
+                nonce += 1
+            hashes += nonce + 1
+            m.shares.append((en2, nonce))
+    return hashes
+
+
+def fleet_phase(dev, card: str, kernel_rate: float) -> int:
+    """Phase 22: pool mode with local mining on B1 under a 1,000-miner
+    fleet. Returns B1's launches in it."""
+    import numpy as np
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.stratum import protocol as sp
+
+    phase(f"22 pool mode on the card: Application as `cli pool --mine` "
+          f"sets it, B1 mining through its loopback client, {FLEET} "
+          f"raw-wire miners x {FLEET_SHARES} shares over "
+          f"{FLEET_WINDOW_S:.0f} s, difficulty-1 mock chain")
+    limits = raise_fd_limit(2 * FLEET + 256)
+    chain = MockChainClient(nbits=0x1D00FFFF)
+    app = pool_app("sha256d", 1.0, chain, dev)
+    card_latency, card_shares = [], []
+    out: dict = {}
+
+    async def run22():
+        await app.start()
+        try:
+            booked = Booked(app.server, app.pool.on_share)
+            submit = app.client.submit
+
+            async def timed_submit(share):
+                t_sent = time.monotonic()
+                result = await submit(share)
+                card_latency.append((t_sent, result.latency))
+                card_shares.append((share, result.accepted))
+                return result
+
+            app.client.submit = timed_submit
+            gate = Gate(app.engine)
+            await engine_running(app)
+            watch.start(app.engine)
+            lift_ip_caps(app.server)
+            miners = [FleetMiner(i) for i in range(FLEET)]
+            t_ramp = time.monotonic()
+
+            async def connect(i, m):
+                await asyncio.sleep(i / FLEET_CONNECT_RATE)
+                await m.connect(app.server.port, sp)
+
+            await asyncio.gather(*(connect(i, m) for i, m in enumerate(miners)))
+            ramp_s = time.monotonic() - t_ramp
+            check(all(m.job is not None for m in miners),
+                  "a fleet miner got no job")
+            by_en1 = {s.extranonce1: s for s in app.server.sessions.values()}
+            for m in miners:
+                app.server._send_difficulty(by_en1[m.extranonce1],
+                                            FLEET_DIFFICULTY)
+            t_pre = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                premined = await asyncio.get_running_loop().run_in_executor(
+                    pool, premine, miners, FLEET_DIFFICULTY)
+            premine_s = time.monotonic() - t_pre
+            rng = np.random.default_rng(SEED + 22)
+            times = np.sort(rng.uniform(0, FLEET_WINDOW_S,
+                                        size=FLEET * FLEET_SHARES))
+            order = rng.permutation(FLEET * FLEET_SHARES)
+            t0 = time.monotonic()
+
+            async def fleet_submit(k, at):
+                await asyncio.sleep(max(0.0, t0 + at - time.monotonic()))
+                m = miners[k // FLEET_SHARES]
+                await m.submit(sp, *m.shares[k % FLEET_SHARES])
+
+            await asyncio.gather(*(fleet_submit(int(k), float(at))
+                                   for k, at in zip(order, times)))
+            t1 = time.monotonic()
+            # a card block and its distribution; then the cut, after which
+            # every share the card submitted has its verdict. The restart
+            # lock keeps the supervisors from restarting the stopped
+            # engine while the books are read
+            await until(lambda: chain.submitted, MAIN_PATH_BOUND_S,
+                        "a card block on the mock chain")
+            await until(lambda: any(w["balance"] > 0
+                                    for w in app.pool.workers.list()),
+                        30.0, "distribute_block's credits")
+            watch.stop()
+            await gate.cut()
+            async with app._restart_lock:
+                await app.engine.stop()
+                rows = app.db.query(
+                    "SELECT worker, COUNT(*) AS c FROM shares GROUP BY worker")
+                out.update(
+                    booked=booked, miners=miners, ramp_s=ramp_s,
+                    premine_s=premine_s, premined=premined, t0=t0, t1=t1,
+                    held=gate.held, t_pre=t_pre,
+                    rows={r["worker"]: r["c"] for r in rows},
+                    snap=app.snapshot(), client=dict(app.client.stats),
+                    balances=sum(w["balance"]
+                                 for w in app.pool.workers.list()))
+            for m in miners:
+                m.close()
+        finally:
+            await app.stop()
+
+    sc.launches.reset()
+    st.calls.reset()
+    watch = HashWatch()
+    asyncio.run(run22())
+    launches, plain = sc.launches.value, st.calls.value
+    steady_rate, steady_text = watch.summary()
+    # from 1 s into the submit window: the drained calls queued on the
+    # card behind the pre-mine's stall catch up first, milliseconds apart
+    window_rate, window_text = watch.between(out["t0"] + 1.0, out["t1"])
+    check(launches > 0 and plain == 0,
+          f"B1 launches {launches}, plain-version calls {plain}")
+    miners, booked, snap = out["miners"], out["booked"], out["snap"]
+    check({"stratum", "pool"} <= set(snap), "snapshot lacks stratum or pool")
+    # three ways, per worker: the accepts the clients saw, the shares the
+    # ledger hook took, the share rows in the database
+    seen = {m.worker: sum(r[0] for r in m.results) for m in miners}
+    seen[POOL_WORKER] = out["client"]["shares_accepted"]
+    seen = {w: n for w, n in seen.items() if n}
+    delivered = booked.by_worker()
+    differ = sorted(w for w in set(seen) | set(delivered) | set(out["rows"])
+                    if not seen.get(w) == delivered.get(w)
+                    == out["rows"].get(w))
+    check(not differ, "client accepts, on_share deliveries and db rows "
+          f"disagree for {differ[:8]}")
+    rejects = [r for m in miners for r in m.results if not r[0]]
+    check(not rejects, f"{len(rejects)} honest fleet shares rejected: "
+          f"{rejects[:4]}")
+    check(sum(len(m.results) for m in miners) == FLEET * FLEET_SHARES
+          and sum(seen[m.worker] for m in miners) == FLEET * FLEET_SHARES,
+          "not every fleet share was accepted")
+    check(out["client"]["shares_rejected"] == 0,
+          f"{out['client']['shares_rejected']} card shares rejected")
+    check_accepted(booked.shares)
+    # every card share: the engine's digest is hashlib's of the header the
+    # server rebuilt
+    server_digest = {(s.job_id, s.extranonce2, s.nonce_word): s.digest
+                     for s in booked.shares if s.worker_user == POOL_WORKER}
+    for share, accepted in card_shares:
+        key = (share.job_id, share.extranonce2, share.nonce_word)
+        check(accepted and server_digest.get(key) == share.digest,
+              f"card share {key} not booked with the engine's digest")
+    target = tgt.bits_to_target(0x1D00FFFF)
+    for height, header, block_hash in chain.submitted:
+        check(sha256d_value(header) <= target, f"block {height} fails hashlib")
+    check(chain.submitted and snap["pool"]["blocks"] >= 1
+          and out["balances"] > 0, "no block credited by distribute_block")
+    fleet_lat = [r[2] for m in miners for r in m.results]
+    acc = snap["stratum"]["accept_latency"]
+    card_n = seen.get(POOL_WORKER, 0)
+    card_window = [lat for t, lat in card_latency
+                   if out["t0"] <= t <= out["t1"]]
+    print(f"   {limits}; {FLEET} connects in {out['ramp_s']:.2f} s; "
+          f"{FLEET * FLEET_SHARES} shares pre-mined on the host in "
+          f"{out['premine_s']:.2f} s ({out['premined']} hashes) at "
+          f"difficulty {FLEET_DIFFICULTY:g}", flush=True)
+    print(f"   accounting per worker equal three ways ({len(seen)} workers: "
+          f"{FLEET} fleet, the card's {card_n} shares): client accepts = "
+          f"on_share deliveries = db rows; every share re-hashed with "
+          f"hashlib; fleet rejects 0, card rejects 0; {len(chain.submitted)} "
+          f"card blocks on the mock chain, balances credited "
+          f"{out['balances']}", flush=True)
+    print(f"   share-accept latency: the server's histogram p50 "
+          f"{acc['p50_ms']:.2f} ms, p99 {acc['p99_ms']:.2f} ms (bucket bounds,"
+          f" {acc['count']} submits); the card's client in the submit window"
+          f" {quantiles(card_window)}, over the phase "
+          f"{quantiles([lat for _, lat in card_latency])}; the fleet's raw "
+          f"clients {quantiles(fleet_lat)}; card shares held at the cut "
+          f"{out['held']}", flush=True)
+    print(f"   engine in the {out['t1'] - out['t0']:.2f} s submit window, "
+          f"from its first second on: "
+          f"{window_text} = {window_rate / kernel_rate:.1%} of phase 5's "
+          f"kernel rate {kernel_rate / 1e9:.3f} GH/s; over the whole phase "
+          f"({steady_rate / kernel_rate:.1%}), the pre-mine on a host thread "
+          f"from {out['t_pre'] - watch.moves[0][0]:+.2f} s included: "
+          f"{steady_text}; B1 launches {launches}, plain-version calls "
+          f"{plain}; {card}", flush=True)
+    return launches
+
+
+class CountingCuda:
+    """``CudaBackend`` with each collected window recorded: the buffer's
+    count word (the window's true winner count) beside the winners the
+    backend returns, bisected or not."""
+
+    @staticmethod
+    def make(dev):
+        from otedama_tpu_torch.kernels import sha256_cuda as sc
+        from otedama_tpu_torch.runtime.search import CudaBackend
+
+        class Counting(CudaBackend):
+            windows: list = []
+
+            def _collect(self, jc, base, count, buf):
+                n = int(sc.unpack_winner_buffer(buf, self.k)[2])
+                result = super()._collect(jc, base, count, buf)
+                self.windows.append((n, len(result.winners), count))
+                return result
+
+        backend = Counting(dev)
+        backend.windows = []
+        return backend
+
+
+def vardiff_phase(dev, card: str) -> int:
+    """Phase 23: a StratumServer at difficulty 1/64 with a fast vardiff,
+    mined by B1 through a StratumClient. Returns B1's launches."""
+    from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
+    from otedama_tpu_torch.engine.vardiff import VardiffConfig
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.stratum import protocol as sp
+    from otedama_tpu_torch.stratum.client import ClientConfig, StratumClient
+    from otedama_tpu_torch.stratum.server import ServerConfig, StratumServer
+
+    phase("23 low difficulty and vardiff on the card: StratumServer at "
+          "difficulty 1/64, VardiffConfig(retarget_seconds=2, "
+          "target_share_seconds=0.5), B1 through a StratumClient")
+    vcfg = VardiffConfig(retarget_seconds=2.0, target_share_seconds=0.5)
+    backend = CountingCuda.make(dev)
+    engine = MiningEngine({backend.name: backend},
+                          config=EngineConfig(worker_name="card.vardiff"))
+    credited, retargets, jobs, verdicts = [], [], {}, []
+
+    async def run23():
+        server = StratumServer(ServerConfig(
+            host="127.0.0.1", port=0, initial_difficulty=VARDIFF_START,
+            vardiff=vcfg))
+
+        async def on_share(s):
+            session = server.sessions[s.session_id]
+            credited.append((s, session.difficulty, session.prev_difficulty))
+
+        server.on_share = on_share
+        await server.start()
+        client = None
+        try:
+            def on_difficulty(d):
+                retargets.append((time.monotonic(), d))
+
+            def on_job(job):
+                jobs[job.job_id] = (time.monotonic(), job, client.difficulty)
+                engine.set_job(job)
+
+            client = StratumClient(
+                ClientConfig(host="127.0.0.1", port=server.port,
+                             username="card.vardiff"),
+                on_job=on_job, on_difficulty=on_difficulty)
+
+            async def submit(share):
+                result = await client.submit(share)
+                verdicts.append((share, result, client.difficulty))
+
+            engine.on_share = submit
+            await client.start()
+            await asyncio.get_running_loop().run_in_executor(
+                None, backend.precompile)
+            await engine.start()
+            for i in range(12):
+                server.set_job(smoke_job(f"vd{i}", share_target=0), clean=True)
+                await asyncio.sleep(1.0)
+            await engine.stop()
+        finally:
+            await engine.close()
+            if client is not None:
+                await client.stop()
+            await server.stop()
+
+    sc.launches.reset()
+    st.calls.reset()
+    asyncio.run(run23())
+    launches, plain = sc.launches.value, st.calls.value
+    check(launches > 0 and plain == 0,
+          f"B1 launches {launches}, plain-version calls {plain}")
+    windows = backend.windows
+    over = [w for w in windows if w[0] > backend.k]
+    check(over, "no launch overflowed its winner table at difficulty 1/64")
+    check(all(n == got for n, got, _ in windows),
+          "a window's count word differs from the winners returned: "
+          f"{[w for w in windows if w[0] != w[1]][:4]}")
+    # the climb: at most x4 a retarget, and it climbs
+    ds = [VARDIFF_START] + [d for _, d in retargets]
+    check(len(ds) >= 3 and ds[-1] > VARDIFF_START, f"no climb: {ds}")
+    check(all(b <= 4 * a * (1 + 1e-9) and b >= a / 4 * (1 - 1e-9)
+              for a, b in zip(ds, ds[1:])), f"a step over x4: {ds}")
+    # every retarget reaches the engine's next job
+    job_times = sorted((t, job, d) for t, job, d in jobs.values())
+    for t_r, d in retargets:
+        nxt = [(t, job, dj) for t, job, dj in job_times if t > t_r]
+        later = [t for t, _ in retargets if t > t_r]
+        if nxt and (not later or nxt[0][0] < later[0]):
+            check(nxt[0][1].share_target == tgt.difficulty_to_target(d),
+                  f"retarget {d:g} did not reach the next job")
+    # credits: at the difficulty in force when the share meets it, else at
+    # the previous one (a share found under the previous target)
+    prev_credits = 0
+    job_d = {jid: dj for jid, (_, _, dj) in jobs.items()}
+    for s, d_now, d_prev in credited:
+        if tgt.hash_meets_target(s.digest, tgt.difficulty_to_target(d_now)):
+            check(s.difficulty == d_now, f"share credited at {s.difficulty:g}"
+                  f" though it meets the difficulty in force {d_now:g}")
+        else:
+            check(d_prev is not None and s.difficulty == d_prev
+                  and job_d[s.job_id] <= d_prev * (1 + 1e-9),
+                  f"share found under {job_d[s.job_id]:g} credited at "
+                  f"{s.difficulty:g} (in force {d_now:g}, previous {d_prev})")
+            prev_credits += 1
+    check_accepted([c[0] for c in credited])
+    rejected = [(sh, r, d) for sh, r, d in verdicts if not r.accepted]
+    for sh, r, d_now in rejected:
+        d_job = job_d[sh.job_id]
+        check(r.error and r.error[0] == sp.ERR_LOW_DIFF and d_job < d_now
+              and tgt.hash_meets_target(sh.digest,
+                                        tgt.difficulty_to_target(d_job)),
+              f"unexplained reject {r.error} of a share found under "
+              f"{d_job:g} (difficulty then {d_now:g})")
+    print(f"   {len(windows)} windows, {len(over)} overflowed and bisected "
+          f"(count words up to {max(w[0] for w in windows)}), every window's "
+          f"count word = the winners returned; difficulty "
+          + " -> ".join(f"{d:.4g}" for d in ds)
+          + f"; {len(credited)} shares credited, {prev_credits} of them at the"
+          f" previous difficulty; {len(rejected)} low-difficulty rejects, each"
+          f" of a share found under a difficulty two retargets old; B1 "
+          f"launches {launches}; {card}", flush=True)
+    return launches
+
+
+def failover_phase(dev, card: str) -> int:
+    """Phase 24: the app mining on B1 to the primary of two loopback
+    upstreams; the primary stops. Returns B1's launches."""
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig, UpstreamConfig
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.stratum.server import ServerConfig, StratumServer
+
+    phase("24 upstream failover on the card: two loopback StratumServers as "
+          "upstreams (priority 0 and 1), the primary stopped")
+    accepted = {"primary": [], "backup": []}
+    out: dict = {}
+
+    async def run24():
+        servers = {}
+        for name in ("primary", "backup"):
+            async def on_share(s, name=name):
+                accepted[name].append((time.monotonic(), s))
+
+            servers[name] = StratumServer(
+                ServerConfig(host="127.0.0.1", port=0,
+                             initial_difficulty=FAILOVER_DIFFICULTY,
+                             session_secret="smoke-upstreams"),
+                on_share=on_share)
+            await servers[name].start()
+        cfg = AppConfig()
+        cfg.mining.device = str(dev)
+        cfg.mining.worker_name = "card.up"
+        cfg.upstreams = [UpstreamConfig(url=f"127.0.0.1:{servers[n].port}",
+                                        username="card.up", priority=p)
+                         for p, n in enumerate(("primary", "backup"))]
+        app = Application(cfg)
+        feed_stop = asyncio.Event()
+
+        async def feed():
+            i = 0
+            while not feed_stop.is_set():
+                job = smoke_job(f"up{i}", share_target=0)
+                for s in servers.values():
+                    s.set_job(job)
+                i += 1
+                await asyncio.sleep(1.0)
+
+        feeder = asyncio.get_running_loop().create_task(feed())
+        try:
+            await app.start()
+            await engine_running(app)
+            watch = Timeline(app.engine)
+            await until(lambda: len(accepted["primary"]) >= 3,
+                        MAIN_PATH_BOUND_S, "3 accepts at the primary")
+            old = app.client
+            en1 = old.extranonce1
+            check(old.resume_token, "the primary issued no resume token")
+            await servers["primary"].stop()
+            t_stop = time.monotonic()
+            checks = 0
+            while app.failover.select() is not app.failover.pools[1]:
+                await app.failover.check_all()
+                checks += 1
+                check(checks <= 10, "failover never selected the backup")
+            t_sel = time.monotonic()
+            await app._connect_upstream(app.failover.select())
+            t_conn = time.monotonic()
+            t_first = await until(lambda: accepted["backup"], 60.0,
+                                  "an accept at the backup")
+            await until(lambda: len(accepted["backup"]) >= 3, 60.0,
+                        "3 accepts at the backup")
+            watch.stop()
+            out.update(
+                t_stop=t_stop, t_sel=t_sel, t_conn=t_conn,
+                first=accepted["backup"][0][0], checks=checks, en1=en1,
+                new_en1=app.client.extranonce1,
+                resumes=servers["backup"].stats["resumes_accepted"],
+                state=app.engine.state.value, moves=watch.moves,
+                restarts=app.snapshot()["recovery"]["engine"]["restarts"],
+                old_stopped=old not in app._started)
+        finally:
+            feed_stop.set()
+            await feeder
+            await app.stop()
+            for s in servers.values():
+                await s.stop()
+
+    sc.launches.reset()
+    st.calls.reset()
+    asyncio.run(run24())
+    launches, plain = sc.launches.value, st.calls.value
+    check(launches > 0 and plain == 0,
+          f"B1 launches {launches}, plain-version calls {plain}")
+    check(out["resumes"] == 1 and out["new_en1"] == out["en1"],
+          "the resume token did not carry the session to the backup "
+          f"(resumes {out['resumes']}, en1 {out['en1'].hex()} -> "
+          f"{out['new_en1'].hex()})")
+    check(out["old_stopped"], "the old client is still in the app's books")
+    check(out["state"] == "running" and out["restarts"] == 0,
+          f"the engine stopped: state {out['state']}, restarts "
+          f"{out['restarts']}")
+    # the engine never stopped: its hash count kept moving, drained call
+    # after drained call, from 2 s before the primary's stop to the end
+    around = [t for t, _ in out["moves"] if t >= out["t_stop"] - 2.0]
+    gaps = [b - a for a, b in zip(around, around[1:])]
+    check(len(around) >= 3 and max(gaps) < 2.0,
+          f"the engine's hash count stalled across the failover: "
+          f"{len(around)} moves, gaps {[round(g, 3) for g in gaps][:12]}")
+    check_accepted([s for _, s in accepted["primary"] + accepted["backup"]])
+    print(f"   primary stopped; {out['checks']} check_all rounds to select the"
+          f" backup ({(out['t_sel'] - out['t_stop']) * 1e3:.1f} ms), "
+          f"reconnected with the resume token in "
+          f"{(out['t_conn'] - out['t_sel']) * 1e3:.1f} ms (extranonce1 "
+          f"{out['en1'].hex()} kept); first accept at the backup "
+          f"{(out['first'] - out['t_stop']) * 1e3:.1f} ms after the stop; the"
+          f" engine's hash count moved {len(around)} times from 2 s before "
+          f"the stop to the end, the longest gap {max(gaps) * 1e3:.1f} ms, no"
+          f" restart; accepts primary {len(accepted['primary'])}, backup "
+          f"{len(accepted['backup'])}, every one re-hashed with hashlib; B1 "
+          f"launches {launches}; {card}", flush=True)
+    return launches
+
+
+def scrypt_pool_phase(dev, card: str) -> int:
+    """Phase 25: phase 22's app with ``mining.algorithm = "scrypt"`` on the
+    ``romix`` tier. Returns B5's launches."""
+    import torch
+
+    import otedama_tpu_torch.stratum.server as server_mod
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import scrypt_torch as sct
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+
+    phase(f"25 a scrypt pool on the card: the pool app with "
+          f"mining.algorithm=scrypt (romix tier, B5), share difficulty "
+          f"2^-16, {SCRYPT_POOL_WINDOW_S:.0f} s")
+    chain = MockChainClient(nbits=SCRYPT_NBITS)
+    outcomes, digest_threads = [], []
+    submit_block = chain.submit_block
+
+    async def record_submit(header):
+        outcome = await submit_block(header)
+        outcomes.append(outcome)
+        return outcome
+
+    chain.submit_block = record_submit
+    pow_digest = server_mod.pow_digest
+
+    def traced_digest(header, algorithm="sha256d", block_number=0):
+        digest_threads.append((algorithm, threading.current_thread().name))
+        return pow_digest(header, algorithm, block_number)
+
+    app = pool_app("scrypt", SCRYPT_POOL_DIFFICULTY, chain, dev)
+    out: dict = {}
+
+    async def run25():
+        await app.start()
+        try:
+            booked = Booked(app.server, app.pool.on_share)
+            gate = Gate(app.engine)
+            await engine_running(app)
+            watch.start(app.engine)
+            h0, t0 = app.engine.stats.hashes, time.monotonic()
+            await asyncio.sleep(SCRYPT_POOL_WINDOW_S)
+            hashes, seconds = (app.engine.stats.hashes - h0,
+                               time.monotonic() - t0)
+            watch.stop()
+            await gate.cut()
+            async with app._restart_lock:
+                await app.engine.stop()
+            out.update(booked=booked, hashes=hashes, seconds=seconds,
+                       held=gate.held,
+                       client=dict(app.client.stats),
+                       backend=next(iter(app.engine.backends.values())).name,
+                       rows=app.db.query("SELECT COUNT(*) AS c FROM shares")[0]["c"])
+        finally:
+            await app.stop()
+
+    for counter in (scc.romix_launches, scc.search_launches,
+                    scc.blockmix_launches, scc.blockmix_xor_launches, sct.calls):
+        counter.reset()
+    server_mod.pow_digest = traced_digest
+    watch = HashWatch()
+    # every share is a block candidate that the mock chain refuses (it
+    # checks blocks by sha256d): keep the submitter's warning per refusal
+    # out of the log, they are counted below
+    logging.getLogger("otedama.pool.submitter").setLevel(logging.ERROR)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        asyncio.run(run25())
+    finally:
+        server_mod.pow_digest = pow_digest
+        logging.getLogger("otedama.pool.submitter").setLevel(logging.NOTSET)
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    romix, plain = scc.romix_launches.value, sct.calls.value
+    check(romix > 0 and plain == 0,
+          f"B5 launches {romix}, plain-version calls {plain}")
+    check(scc.blockmix_launches.value == 0, "the romix tier ran BlockMix")
+    shares = out["booked"].shares
+    check(shares and len(shares) == out["rows"]
+          == out["client"]["shares_accepted"], "scrypt accounting differs: "
+          f"{len(shares)} booked, {out['rows']} rows, "
+          f"{out['client']['shares_accepted']} client accepts")
+    check(out["client"]["shares_rejected"] == 0, "a scrypt share rejected")
+    check(all(s.algorithm == "scrypt" for s in shares), "non-scrypt share")
+    scrypt_digests = [t for a, t in digest_threads if a == "scrypt"]
+    check(len(scrypt_digests) == out["client"]["shares_submitted"]
+          and all(t.startswith("share-validate") for t in scrypt_digests),
+          "a scrypt share was not digested on the validation executor: "
+          f"{sorted(set(scrypt_digests))}")
+    check_accepted(shares)
+    refused: dict = {}
+    for o in outcomes:
+        if not o.accepted:
+            refused[o.reason] = refused.get(o.reason, 0) + 1
+    print(f"   backend {out['backend']}: {out['hashes']} hashes in "
+          f"{out['seconds']:.2f} s = {out['hashes'] / out['seconds']:.1f} H/s;"
+          f" {watch.summary()[1]};"
+          f" {len(shares)} shares booked ({out['held']} held at the cut) = db rows = client accepts, each "
+          f"digested by hashlib.scrypt on the validation executor "
+          f"({sorted(set(scrypt_digests))}) and re-hashed here; block "
+          f"candidates {len(outcomes)}: accepted "
+          f"{sum(o.accepted for o in outcomes)}, refused {refused} (the mock "
+          f"chain checks blocks by sha256d); V's peak device memory "
+          f"{peak / 2**30:.2f} GiB; B5 launches {romix}, search launches "
+          f"{scc.search_launches.value}, plain-version calls {plain}; {card}",
+          flush=True)
+    return romix
+
+
+def pool_phases(dev, card: str, kernel_rate: float) -> dict:
+    """Phases 22-25. Returns B1's and B5's launches in them."""
+    return dict(fleet=fleet_phase(dev, card, kernel_rate),
+                vardiff=vardiff_phase(dev, card),
+                failover=failover_phase(dev, card),
+                b5=scrypt_pool_phase(dev, card))
+
+
 def main() -> int:
     import torch
 
@@ -2297,6 +3145,14 @@ def main() -> int:
                        + rpc_launches)
     b5["path"] += (f"; warm switch (phase 20): {switched['b5_launches']}")
     b5["launches"] += switched["b5_launches"]
+    pooled = pool_phases(dev, card, kernel_rate)
+    b1["path"] += (f"; pool mode with a 1,000-miner fleet (phase 22): "
+                   f"{pooled['fleet']}; vardiff from 1/64 (phase 23): "
+                   f"{pooled['vardiff']}; upstream failover (phase 24): "
+                   f"{pooled['failover']}")
+    b1["launches"] += pooled["fleet"] + pooled["vardiff"] + pooled["failover"]
+    b5["path"] += f"; scrypt pool (phase 25): {pooled['b5']}"
+    b5["launches"] += pooled["b5"]
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)

@@ -1,14 +1,27 @@
-"""Application composition root + lifecycle, solo mode (counterpart of
-``otedama_tpu/app.py``: ``_build_engine``, ``_on_share``, the chain branch
-of ``_start_miner_side``, precompile-then-start, ``_start_supervision``,
-``stop``, ``snapshot``).
+"""Application composition root + lifecycle (counterpart of
+``otedama_tpu/app.py``: ``_build_engine``, ``_on_share``, the
+single-server pool side, the work source, the validator wiring, the
+stratum listeners, ``_start_miner_side``'s upstream, loopback and chain
+branches, upstream failover, precompile-then-start,
+``_start_supervision``, ``stop``, ``snapshot``). Modes:
 
-Solo: the engine mines jobs from a ``TemplateSource`` polling a chain
-client — the node named by ``pool.chain_rpc_url`` through
-``BitcoinRPCClient``, else the in-process mock chain — and every share
-that meets the network target is submitted to the chain as a block. A
-``FailureDetector`` and a ``RecoveryManager`` supervise the engine. The
-pool, stratum, p2p and API tiers of the reference are not ported yet.
+- solo: the engine mines jobs from a ``TemplateSource`` polling a chain
+  client — the node named by ``pool.chain_rpc_url`` through
+  ``BitcoinRPCClient``, else the in-process mock chain — and every share
+  that meets the network target is submitted to the chain as a block;
+- pool (``pool.enabled``): a ``StratumServer`` serves miners jobs from a
+  ``TemplateSource`` through ``PoolManager.job_from_template``; every
+  accepted share is booked by ``PoolManager.on_share`` (one SQLite
+  transaction) and a block goes through ``on_block`` to the chain. With
+  mining on, the engine mines for the pool through a loopback
+  ``StratumClient``;
+- upstream (``upstreams``): the engine mines for outside pools through a
+  ``StratumClient``, re-pointed by a ``FailoverManager``.
+
+A ``FailureDetector`` and a ``RecoveryManager`` supervise the engine. The
+reference's sharded front-end, Stratum V2, p2p, settlement, regions,
+merged mining and API tiers are not ported yet (``config/schema.py``
+refuses them by name).
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
 from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
 from otedama_tpu_torch.engine.jobs import header_from_share
 from otedama_tpu_torch.engine.types import Share
+from otedama_tpu_torch.engine.vardiff import VardiffConfig
 from otedama_tpu_torch.kernels import target as tgt
 from otedama_tpu_torch.pool.blockchain import BitcoinRPCClient, MockChainClient
 from otedama_tpu_torch.runtime.failure import (
@@ -35,17 +49,50 @@ from otedama_tpu_torch.work.template import TemplateSource
 log = logging.getLogger("otedama.app")
 
 
+def parse_upstream_url(url: str, default_port: int = 3333) -> tuple[str, int]:
+    """'pool.example.com', 'host:3333' and 'stratum+tcp://host:3333' all work."""
+    rest = url.strip()
+    if "://" in rest:
+        rest = rest.split("://", 1)[1]
+    rest = rest.rstrip("/")
+    host, _, port_str = rest.rpartition(":")
+    if not host:
+        return rest, default_port
+    try:
+        return host, int(port_str)
+    except ValueError:
+        return rest, default_port
+
+
+def _chain_client(cfg: AppConfig):
+    """The chain client the config names: the node at
+    ``pool.chain_rpc_url``, else the in-process mock chain."""
+    if cfg.pool.chain_rpc_url:
+        return BitcoinRPCClient(cfg.pool.chain_rpc_url, cfg.pool.chain_rpc_user,
+                                cfg.pool.chain_rpc_password)
+    return MockChainClient()
+
+
 class Application:
-    """``chain``: the chain client to mine against; None builds the one the
-    config names (the in-process mock chain when ``pool.chain_rpc_url`` is
-    unset)."""
+    """``chain``: the chain client the solo miner or the pool works
+    against; None builds the one the config names (the in-process mock
+    chain when ``pool.chain_rpc_url`` is unset)."""
 
     def __init__(self, config: AppConfig | None = None, *, chain=None):
         self.config = config or AppConfig()
         self.algo_manager = AlgorithmManager(self.config.mining.backend,
                                              device=self.config.mining.device)
         self.engine: MiningEngine | None = None
-        self.chain = chain
+        self._chain_arg = chain
+        self.chain = None           # chain client (solo mode)
+        self.client = None          # stratum client (upstream / loopback)
+        self.server = None          # stratum server (pool mode)
+        self.pool = None            # pool manager
+        self.db = None
+        self.validator = None       # device-batched share validation
+        self.failover = None        # upstream failover manager
+        self._upstream_auth: dict[str, tuple[str, str]] = {}
+        self._active_upstream = None
         self.worksource: TemplateSource | None = None
         self.recovery: RecoveryManager | None = None
         self.failure_detector: FailureDetector | None = None
@@ -79,7 +126,16 @@ class Application:
         )
 
     async def _on_share(self, share: Share) -> None:
-        """Solo: submit every share that meets the network target."""
+        """Upstream or loopback: submit to the pool and count its verdict.
+        Solo: submit every share that meets the network target."""
+        if self.client is not None:
+            result = await self.client.submit(share)
+            if self.engine is not None:
+                if result.accepted:
+                    self.engine.stats.shares_accepted += 1
+                else:
+                    self.engine.stats.shares_rejected += 1
+            return
         if self.engine is not None:
             self.engine.stats.shares_accepted += 1
         job = self.worksource.get_job(share.job_id)
@@ -99,34 +155,163 @@ class Application:
 
     async def start(self) -> None:
         self.started_at = time.time()
-        if self.config.mining.enabled:
+        cfg = self.config
+        if cfg.pool.enabled:
+            await self._start_pool_side()
+        if cfg.validation.enabled:
+            # the ledger's batch path verifies on this backend; the
+            # single-process server books share by share and never
+            # reaches it
+            from otedama_tpu_torch.runtime.validate import ValidationBackend
+
+            self.validator = ValidationBackend(
+                min_batch=cfg.validation.min_batch,
+                tripwire_rate=cfg.validation.tripwire_rate,
+                quarantine_seconds=cfg.validation.quarantine_seconds,
+                device=cfg.mining.device,
+            )
+            if self.pool is not None:
+                self.pool.validator = self.validator
+        # the listening sockets open only once every pool-side dependency
+        # is in place, before the first miner can connect
+        await self._start_stratum_listeners()
+        if cfg.mining.enabled:
             await self._start_miner_side()
         await self._start_supervision()
-        log.info("application started (solo mining: %s)",
-                 self.config.mining.enabled)
+        log.info("application started (%s)", ", ".join(
+            name for name, on in (("mining", cfg.mining.enabled),
+                                  ("pool", cfg.pool.enabled)) if on
+        ) or "idle")
 
-    async def _start_miner_side(self) -> None:
+    async def _start_pool_side(self) -> None:
+        from otedama_tpu_torch.db import connect_database
+        from otedama_tpu_torch.pool.manager import PoolConfig, PoolManager
+        from otedama_tpu_torch.pool.payouts import PayoutConfig, PayoutScheme
+        from otedama_tpu_torch.stratum.server import ServerConfig, StratumServer
+
         cfg = self.config
-        if self.chain is None:
-            self.chain = (
-                BitcoinRPCClient(cfg.pool.chain_rpc_url,
-                                 cfg.pool.chain_rpc_user,
-                                 cfg.pool.chain_rpc_password)
-                if cfg.pool.chain_rpc_url
-                else MockChainClient()
-            )
-        self.engine = self._build_engine()
+        # the pool serves one chain whose algorithm never changes at run
+        # time: its jobs keep this label whatever the miner side does
+        self._pool_algorithm = cfg.mining.algorithm
+        self.db = connect_database(cfg.pool.database)
+        chain = self._chain_arg or _chain_client(cfg)
+        pool_cfg = PoolConfig(payout=PayoutConfig(
+            scheme=PayoutScheme(cfg.pool.payout_scheme.upper()),
+            pplns_window=cfg.pool.pplns_window,
+            pool_fee_percent=cfg.pool.fee_percent,
+            minimum_payout=cfg.pool.minimum_payout,
+            payout_fee=cfg.pool.payout_fee,
+        ))
+        self.pool = PoolManager(self.db, chain, config=pool_cfg)
+        self.server = StratumServer(
+            ServerConfig(
+                host=cfg.stratum.host,
+                port=cfg.stratum.port,
+                extranonce2_size=cfg.stratum.extranonce2_size,
+                initial_difficulty=cfg.stratum.initial_difficulty,
+                max_clients=cfg.stratum.max_clients,
+                vardiff=VardiffConfig(
+                    target_share_seconds=cfg.stratum.vardiff_target_seconds
+                ),
+            ),
+            on_share=self.pool.on_share,
+            on_block=self.pool.on_block,
+        )
+        await self.pool.start()
+        self._started.append(self.pool)
+        self._start_worksource(chain, pool_cfg)
+
+    def _start_worksource(self, chain, pool_cfg) -> None:
+        """The pool's own upstream: a TemplateSource originating jobs from
+        the chain node through the pool manager."""
+        cfg = self.config
         source = TemplateSource(
-            self.chain, algorithm=cfg.mining.algorithm,
-            poll_seconds=cfg.work.poll_seconds if cfg.work.enabled else 5.0,
-            # solo shares carry no extranonce1: the gap is extranonce2 alone
-            extranonce1_len=0,
+            chain, pool=self.pool,
+            algorithm=self._pool_algorithm,
+            poll_seconds=(cfg.work.poll_seconds if cfg.work.enabled
+                          else pool_cfg.template_poll_seconds),
+            extranonce2_size=cfg.stratum.extranonce2_size,
             payout_script=bytes.fromhex(cfg.work.payout_script),
             coinbase_tag=cfg.work.coinbase_tag.encode(),
         )
-        source.add_sink(lambda job, clean: self.engine.set_job(job))
+        source.add_sink(self._fan_out_job)
         self.worksource = source
         self._tasks.append(asyncio.create_task(source.run()))
+
+    def _fan_out_job(self, job, clean: bool) -> None:
+        """TemplateSource sink: every job goes to the stratum server."""
+        if self.server is not None:
+            self.server.set_job(job, clean=clean)
+
+    async def _start_stratum_listeners(self) -> None:
+        """Open the stratum listening socket (see start() for why this runs
+        after the pool side is wired, not at server construction)."""
+        if self.server is not None:
+            await self.server.start()
+            self._started.append(self.server)
+
+    async def _start_miner_side(self) -> None:
+        from otedama_tpu_torch.stratum.client import ClientConfig, StratumClient
+
+        cfg = self.config
+        self.engine = self._build_engine()
+        if cfg.upstreams:
+            from otedama_tpu_torch.pool.failover import (
+                FailoverManager,
+                UpstreamPool,
+            )
+
+            ups = []
+            for u in cfg.upstreams:
+                host, port = parse_upstream_url(u.url)
+                ups.append(UpstreamPool(name=u.url, host=host, port=port,
+                                        priority=u.priority))
+            self.failover = FailoverManager(ups)
+            selected = self.failover.select()
+            self._upstream_auth = {
+                u.url: (u.username, u.password) for u in cfg.upstreams
+            }
+            username, password = self._upstream_auth[selected.name]
+            self.client = StratumClient(
+                ClientConfig(
+                    host=selected.host, port=selected.port,
+                    username=username, password=password,
+                    algorithm=cfg.mining.algorithm,
+                ),
+                on_job=self.engine.set_job,
+            )
+            self._active_upstream = selected
+            await self.client.start()
+            self.failover.start()
+            self._started += [self.client, self.failover]
+            self._tasks.append(asyncio.create_task(self._failover_loop()))
+        elif self.server is not None:
+            # pool mode with local mining: loop back to our own server
+            self.client = StratumClient(
+                ClientConfig(
+                    host="127.0.0.1", port=self.server.port,
+                    username=cfg.mining.worker_name,
+                    algorithm=cfg.mining.algorithm,
+                ),
+                on_job=self.engine.set_job,
+            )
+            await self.client.start()
+            self._started.append(self.client)
+        else:
+            # solo against a chain client
+            self.chain = self._chain_arg or _chain_client(cfg)
+            source = TemplateSource(
+                self.chain, algorithm=cfg.mining.algorithm,
+                poll_seconds=cfg.work.poll_seconds if cfg.work.enabled else 5.0,
+                # solo shares carry no extranonce1: the gap is extranonce2
+                # alone
+                extranonce1_len=0,
+                payout_script=bytes.fromhex(cfg.work.payout_script),
+                coinbase_tag=cfg.work.coinbase_tag.encode(),
+            )
+            source.add_sink(lambda job, clean: self.engine.set_job(job))
+            self.worksource = source
+            self._tasks.append(asyncio.create_task(source.run()))
         if cfg.mining.precompile:
             # build + warm in the background: the job feed comes up
             # meanwhile (early jobs buffer in set_job) and the engine
@@ -152,6 +337,46 @@ class Application:
                               "start", backend.name)
                 raise
         await engine.start()
+
+    async def _connect_upstream(self, selected) -> None:
+        """Re-point the stratum client at ``selected``, with session
+        handoff: the old client's resume token rides along, so a pool
+        sharing the session secret recovers our difficulty and extranonce
+        lease instead of resetting the session."""
+        from otedama_tpu_torch.stratum.client import ClientConfig, StratumClient
+
+        old = self.client
+        username, password = self._upstream_auth.get(
+            selected.name, ("", "x"))
+        self.client = StratumClient(
+            ClientConfig(
+                host=selected.host, port=selected.port,
+                username=username, password=password,
+                algorithm=self.config.mining.algorithm,
+            ),
+            on_job=self.engine.set_job,
+        )
+        if old is not None:
+            self.client.resume_token = old.resume_token
+        self._active_upstream = selected
+        await self.client.start()
+        # keep shutdown bookkeeping pointed at the live client
+        self._started = [
+            self.client if c is old else c for c in self._started
+        ]
+        if old is not None:
+            await old.stop()
+
+    async def _failover_loop(self) -> None:
+        """Re-point the stratum client when a better upstream wins the
+        health-scored selection."""
+        while True:
+            await asyncio.sleep(self.failover.check_interval)
+            selected = self.failover.select()
+            if selected is self._active_upstream:
+                continue
+            log.info("failing over to upstream %s", selected.name)
+            await self._connect_upstream(selected)
 
     async def _start_supervision(self) -> None:
         """Engine recovery (restart a dead engine) and the failure
@@ -252,15 +477,25 @@ class Application:
             # the end of the engine's life: its card backends free their
             # device memory
             await self.engine.close()
-        close = getattr(self.chain, "close", None)
-        if close is not None:
-            close()  # release pooled keep-alive RPC sockets
+        for chain in (self.chain, getattr(self.pool, "chain", None)):
+            close = getattr(chain, "close", None)
+            if close is not None:
+                try:
+                    close()  # release pooled keep-alive RPC sockets
+                except Exception:
+                    log.exception("chain client close failed")
+        if self.db is not None:
+            self.db.close()
         log.info("application stopped")
 
     def snapshot(self) -> dict:
         out = {"uptime_seconds": round(time.time() - self.started_at, 1)}
         if self.engine is not None:
             out["engine"] = self.engine.snapshot()
+        if self.server is not None:
+            out["stratum"] = self.server.snapshot()
+        if self.pool is not None:
+            out["pool"] = self.pool.snapshot()
         if self.worksource is not None:
             out["worksource"] = self.worksource.snapshot()
         if self.failure_detector is not None:

@@ -1,8 +1,11 @@
-"""Command-line interface: ``solo`` and ``benchmark`` (counterpart of
-``otedama_tpu/cli.py``).
+"""Command-line interface: ``start``, ``solo``, ``pool`` and
+``benchmark`` (counterpart of ``otedama_tpu/cli.py``).
 
-Run as ``python -m otedama_tpu_torch.cli <command>``. Both commands run on
-the card (``--device cuda``) unless asked for another device.
+Run as ``python -m otedama_tpu_torch.cli <command>``. Every command runs
+on the card (``mining.device`` / ``--device`` ``cuda``) unless asked for
+another device; ``start`` with ``upstreams`` in the config mines for
+those pools, ``pool --mine`` serves miners and mines for itself through a
+loopback stratum client.
 """
 
 from __future__ import annotations
@@ -41,12 +44,20 @@ async def _run_app(cfg) -> int:
             loop.add_signal_handler(sig, stop.set)
         except NotImplementedError:  # pragma: no cover - non-unix
             pass
-    await app.start()
     try:
+        await app.start()
         await stop.wait()
     finally:
         await app.stop()
     return 0
+
+
+def cmd_start(args) -> int:
+    from otedama_tpu_torch.config.schema import load_config
+
+    cfg = load_config(args.config)
+    _setup_logging(cfg.logging.level, cfg.logging.file)
+    return asyncio.run(_run_app(cfg))
 
 
 def cmd_solo(args) -> int:
@@ -54,11 +65,24 @@ def cmd_solo(args) -> int:
 
     cfg = load_config(args.config)
     cfg.mining.enabled = True
+    cfg.pool.enabled = False
+    cfg.upstreams = []
     cfg.mining.device = args.device
     if args.algorithm:
         cfg.mining.algorithm = args.algorithm
     if args.backend:
         cfg.mining.backend = args.backend
+    _setup_logging(cfg.logging.level, cfg.logging.file)
+    return asyncio.run(_run_app(cfg))
+
+
+def cmd_pool(args) -> int:
+    from otedama_tpu_torch.config.schema import load_config
+
+    cfg = load_config(args.config)
+    cfg.pool.enabled = True
+    cfg.stratum.enabled = True
+    cfg.mining.enabled = args.mine
     _setup_logging(cfg.logging.level, cfg.logging.file)
     return asyncio.run(_run_app(cfg))
 
@@ -82,11 +106,15 @@ def cmd_benchmark(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="otedama-tpu-torch",
-        description="Solo sha256d or scrypt mining on a CUDA card "
-                    "(PyTorch port).",
+        description="sha256d or scrypt mining and a stratum pool on a CUDA "
+                    "card (PyTorch port).",
     )
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("start", help="start with the config file as-is "
+                       "(upstreams: mine for those pools)")
+    p.set_defaults(fn=cmd_start)
 
     p = sub.add_parser("solo", help="solo-mine against the node at "
                        "pool.chain_rpc_url, else the mock chain")
@@ -96,6 +124,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto (= cuda) | cuda | torch | python")
     p.add_argument("--device", default="cuda", help="torch device")
     p.set_defaults(fn=cmd_solo)
+
+    p = sub.add_parser("pool", help="run a stratum pool server")
+    p.add_argument("--mine", action="store_true",
+                   help="also mine locally, through a loopback client")
+    p.set_defaults(fn=cmd_pool)
 
     p = sub.add_parser("benchmark", help="benchmark the search backend")
     p.add_argument("-a", "--algorithm", default=None,

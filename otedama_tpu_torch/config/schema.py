@@ -1,10 +1,15 @@
 """Configuration schema: YAML file + env overrides + validation
-(counterpart of ``otedama_tpu/config/schema.py``, with only the sections
-the solo path reads: mining, work, the chain RPC fields of pool, logging).
+(counterpart of ``otedama_tpu/config/schema.py``, with the sections the
+solo, pool and upstream paths read: mining, stratum, pool, work,
+validation, logging and ``upstreams``).
 
-Field names and defaults are the reference's; ``mining.device`` is the
-port's own (the torch device the backend runs on). Precedence: env >
-file > defaults. YAML parsing uses pyyaml when present, else a minimal
+Field names, defaults and validation rules are the reference's;
+``mining.device`` is the port's own (the torch device the backend runs
+on). A setting whose code has not been ported yet is refused by
+``validate_config`` with the ROADMAP item that brings it: the sharded
+and fleet front-ends and Stratum V2 (A14), a PostgreSQL database (A6b),
+settlement and multi-region replication (A13). Precedence: env > file >
+defaults. YAML parsing uses pyyaml when present, else a minimal
 two-level parser.
 """
 
@@ -107,12 +112,64 @@ class MiningConfig:
 
 
 @dataclasses.dataclass
+class StratumSettings:
+    enabled: bool = False
+    host: str = "0.0.0.0"
+    port: int = 3333
+    initial_difficulty: float = 1.0
+    extranonce2_size: int = 4
+    max_clients: int = 10000
+    vardiff_target_seconds: float = 10.0
+    # the reference's sharded front-end (acceptor worker processes behind
+    # one port), Stratum V2 and fleet topology: carried so a config that
+    # turns them on is refused by name (ROADMAP A14), never ignored
+    workers: int = 0
+    v2_enabled: bool = False
+    fleet_listen: str = ""
+    fleet_ledger: str = ""
+
+
+@dataclasses.dataclass
+class UpstreamConfig:
+    url: str = ""                      # host:port
+    username: str = ""
+    password: str = "x"
+    priority: int = 0
+
+
+@dataclasses.dataclass
 class PoolSettings:
-    # the solo path reads only the chain node's RPC address; unset = the
-    # in-process mock chain
+    enabled: bool = False
+    payout_scheme: str = "PPLNS"
+    pplns_window: int = 10000
+    fee_percent: float = 1.0
+    minimum_payout: int = 100_000
+    # per-payout network fee charged to the worker (atomic units); must
+    # stay below minimum_payout or nothing is ever payable
+    payout_fee: int = 1_000
+    # SQLite path (":memory:" for a throwaway ledger); a postgres:// DSN
+    # comes with ROADMAP A6b
+    database: str = "otedama.db"
+    # the chain node's RPC address; unset = the in-process mock chain
     chain_rpc_url: str = ""
     chain_rpc_user: str = ""
     chain_rpc_password: str = ""
+
+
+@dataclasses.dataclass
+class SettlementSettings:
+    """The reference's crash-safe settlement engine: refused while enabled
+    until ROADMAP A13 ports it."""
+
+    enabled: bool = False
+
+
+@dataclasses.dataclass
+class RegionSettings:
+    """The reference's multi-region replication: refused while enabled
+    until ROADMAP A13 ports it."""
+
+    enabled: bool = False
 
 
 @dataclasses.dataclass
@@ -129,6 +186,25 @@ class WorkSettings:
 
 
 @dataclasses.dataclass
+class ValidationSettings:
+    """Device-batched share validation (runtime/validate.py) for the pool
+    ledger's batch path ``PoolManager.on_share_batch``. The
+    single-process stratum server books each share through ``on_share``
+    and never reaches it; the batch producers (the sharded front-end and
+    the p2p gossip) come with ROADMAP A14 and A6d."""
+
+    enabled: bool = False
+    # batches under this many shares are validated on the host
+    min_batch: int = 128
+    # fraction of every device batch re-verified through the host oracle
+    tripwire_rate: float = 0.05
+    # seconds the device path stays quarantined after an injected fault
+    quarantine_seconds: float = 60.0
+    # the reference's x11 validation tier; x11 comes with ROADMAP A9
+    x11_chain: str = "numpy"
+
+
+@dataclasses.dataclass
 class LoggingConfig:
     level: str = "info"
     file: str = ""
@@ -137,15 +213,26 @@ class LoggingConfig:
 @dataclasses.dataclass
 class AppConfig:
     mining: MiningConfig = dataclasses.field(default_factory=MiningConfig)
+    stratum: StratumSettings = dataclasses.field(default_factory=StratumSettings)
     pool: PoolSettings = dataclasses.field(default_factory=PoolSettings)
+    settlement: SettlementSettings = dataclasses.field(
+        default_factory=SettlementSettings)
     work: WorkSettings = dataclasses.field(default_factory=WorkSettings)
+    region: RegionSettings = dataclasses.field(default_factory=RegionSettings)
+    validation: ValidationSettings = dataclasses.field(
+        default_factory=ValidationSettings)
     logging: LoggingConfig = dataclasses.field(default_factory=LoggingConfig)
+    upstreams: list = dataclasses.field(default_factory=list)  # [UpstreamConfig]
 
 
 _SECTIONS = {
     "mining": MiningConfig,
+    "stratum": StratumSettings,
     "pool": PoolSettings,
+    "settlement": SettlementSettings,
     "work": WorkSettings,
+    "region": RegionSettings,
+    "validation": ValidationSettings,
     "logging": LoggingConfig,
 }
 
@@ -159,6 +246,16 @@ def _apply_dict(cfg: AppConfig, data: dict) -> None:
         for f in dataclasses.fields(cls):
             if f.name in sub and sub[f.name] is not None:
                 setattr(target, f.name, sub[f.name])
+    ups = data.get("upstreams")
+    if isinstance(ups, list):
+        cfg.upstreams = [
+            UpstreamConfig(**u) if isinstance(u, dict) else u for u in ups
+        ]
+    elif isinstance(ups, dict):
+        # mini-yaml parses "upstreams:" with nested named entries
+        cfg.upstreams = [
+            UpstreamConfig(**v) for v in ups.values() if isinstance(v, dict)
+        ]
 
 
 def _apply_env(cfg: AppConfig, environ=None) -> None:
@@ -231,6 +328,56 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("mining.watchdog_first_deadline must be positive")
     if cfg.mining.max_probes < 0:
         errors.append("mining.max_probes must be >= 0")
+    if not (0 <= cfg.stratum.port <= 65535):
+        errors.append("stratum.port out of range")
+    if cfg.stratum.initial_difficulty <= 0:
+        errors.append("stratum.initial_difficulty must be positive")
+    if not (0 <= cfg.stratum.workers <= 64):
+        errors.append("stratum.workers out of range (0..64)")
+    # settings whose code is not ported yet: refused by name, never
+    # served in part
+    if cfg.stratum.workers > 1:
+        errors.append("stratum.workers > 1 needs the sharded stratum "
+                      "front-end, not ported yet (ROADMAP A14)")
+    for name in ("fleet_listen", "fleet_ledger"):
+        if getattr(cfg.stratum, name):
+            errors.append(f"stratum.{name} needs the fleet topology, not "
+                          "ported yet (ROADMAP A14)")
+    if cfg.stratum.v2_enabled:
+        errors.append("stratum.v2_enabled needs Stratum V2, not ported yet "
+                      "(ROADMAP A14)")
+    if cfg.pool.database.startswith(("postgres://", "postgresql://")):
+        errors.append("a postgres:// pool.database needs the PostgreSQL "
+                      "backend, not ported yet (ROADMAP A6b)")
+    if cfg.settlement.enabled:
+        errors.append("settlement.enabled needs the settlement engine, not "
+                      "ported yet (ROADMAP A13)")
+    if cfg.region.enabled:
+        errors.append("region.enabled needs multi-region replication, not "
+                      "ported yet (ROADMAP A13)")
+    if not (0 <= cfg.pool.fee_percent < 100):
+        errors.append("pool.fee_percent out of range")
+    if cfg.pool.pplns_window <= 0:
+        errors.append("pool.pplns_window must be positive")
+    if cfg.pool.payout_fee < 0:
+        errors.append("pool.payout_fee must be >= 0")
+    if cfg.pool.minimum_payout <= cfg.pool.payout_fee:
+        errors.append(
+            "pool.minimum_payout must exceed pool.payout_fee "
+            "(otherwise no balance is ever payable)"
+        )
+    if cfg.validation.enabled and not cfg.pool.enabled:
+        errors.append("validation.enabled requires pool.enabled (the "
+                      "ledger whose batches it verifies)")
+    if cfg.validation.min_batch < 1:
+        errors.append("validation.min_batch must be >= 1")
+    if not (0.0 <= cfg.validation.tripwire_rate <= 1.0):
+        errors.append("validation.tripwire_rate must be in [0, 1]")
+    if cfg.validation.quarantine_seconds < 0:
+        errors.append("validation.quarantine_seconds must be >= 0")
+    if cfg.validation.x11_chain != "numpy":
+        errors.append("validation.x11_chain other than 'numpy' needs x11, "
+                      "not ported yet (ROADMAP A9)")
     if cfg.work.poll_seconds <= 0:
         errors.append("work.poll_seconds must be positive")
     try:

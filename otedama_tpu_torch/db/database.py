@@ -388,7 +388,7 @@ class _Transaction:
 def connect_database(url: str) -> Database:
     """Backend selection by URL: ``sqlite:///path`` and bare paths
     (including ``:memory:``) get SQLite. ``postgres://`` is refused until
-    the port carries that backend (ROADMAP A6), and any other
+    the port carries that backend (ROADMAP A6b), and any other
     ``scheme://`` fails loudly — a typo'd DSN must not silently become a
     throwaway SQLite file named after the URL."""
     if "://" in url:
@@ -396,7 +396,7 @@ def connect_database(url: str) -> Database:
         if scheme in ("postgres", "postgresql"):
             raise ValueError(
                 f"{url!r}: the port has no PostgreSQL backend yet (it comes "
-                "with the pool modes, ROADMAP A6); use a sqlite path")
+                "with ROADMAP A6b); use a sqlite path")
         if scheme == "sqlite":
             # sqlite:///absolute/path or sqlite://relative/path
             path = url.split("://", 1)[1]

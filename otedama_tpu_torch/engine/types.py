@@ -21,6 +21,16 @@ class EngineState(enum.Enum):
     ERROR = "error"
 
 
+class ShareOutcome(enum.Enum):
+    ACCEPTED = "accepted"
+    REJECTED_STALE = "stale"
+    REJECTED_DUPLICATE = "duplicate"
+    REJECTED_LOW_DIFF = "low-difficulty"
+    REJECTED_BAD_JOB = "unknown-job"
+    REJECTED_INVALID = "invalid"
+    BLOCK_FOUND = "block"
+
+
 @dataclasses.dataclass
 class Job:
     """A unit of work as delivered by a pool (stratum mining.notify) or a
@@ -66,6 +76,10 @@ class Share:
     @property
     def nonce_hex(self) -> str:
         return self.nonce_word.to_bytes(4, "big").hex()
+
+    @property
+    def extranonce2_hex(self) -> str:
+        return self.extranonce2.hex()
 
 
 @dataclasses.dataclass

@@ -104,6 +104,16 @@ def _reg(*points: FaultPoint) -> dict:
 # The fault points the port's modules thread, each with the EXACT action
 # set its call site passes to ``hit()``.
 REGISTRY: dict[str, FaultPoint] = _reg(
+    FaultPoint("stratum.client.read", "stratum/client.py read loop",
+               "host:port", POINT),
+    FaultPoint("stratum.client.send", "stratum/client.py _send",
+               "host:port", SEND_ASYNC),
+    FaultPoint("stratum.server.read", "stratum/server.py per-client loop",
+               "session id", POINT),
+    FaultPoint("stratum.server.write", "stratum/server.py _write_line",
+               "session id", SEND_SYNC),
+    FaultPoint("region.handoff", "stratum/server.py _try_resume",
+               "session id", POINT),
     FaultPoint("db.execute", "db/database.py execute/executemany",
                "", POINT),
     FaultPoint("ledger.flush",
@@ -113,6 +123,8 @@ REGISTRY: dict[str, FaultPoint] = _reg(
                "algorithm", DEVICE),
     FaultPoint("pool.submitter.submit", "pool/submitter.py retry loop",
                "", STEP),
+    FaultPoint("pool.failover.check", "pool/failover.py check_pool",
+               "pool name", POINT),
     FaultPoint("engine.batch", "engine/engine.py search loop",
                "backend name", STEP),
     FaultPoint("device.call", "engine/engine.py _call_device_sync",

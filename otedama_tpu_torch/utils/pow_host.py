@@ -15,6 +15,14 @@ import concurrent.futures
 import hashlib
 import threading
 
+# algorithms whose host validation is real CPU work (milliseconds to
+# seconds a share): the stratum server digests them on the executor
+# thread below instead of on the event loop. The set is the reference's;
+# x11 and ethash stay refused by ``pow_digest`` until ROADMAP A9 and A10
+SLOW_HOST_ALGOS = frozenset(
+    {"scrypt", "litecoin", "x11", "dash", "ethash", "etchash"}
+)
+
 # dedicated pool for share validation: the event loop's DEFAULT executor
 # also carries every engine backend.search dispatch and the device
 # validation dispatches, so host validation gets its own small pool

@@ -1,5 +1,6 @@
-"""TemplateSource: local block templates as the miner's job source
-(counterpart of ``otedama_tpu/work/template.py`` without merged mining).
+"""TemplateSource: local block templates as the job source of a solo
+miner or of the pool (counterpart of ``otedama_tpu/work/template.py``
+without merged mining).
 
 One template's life:
 
@@ -11,12 +12,15 @@ One template's life:
    pool tag, and an extranonce gap of ``extranonce1_len +
    extranonce2_size`` bytes between the halves;
 4. emit a ``Job`` to every sink: ``clean=True`` on a new tip,
-   ``clean=False`` on a same-height refresh (a template race).
+   ``clean=False`` on a same-height refresh (a template race). With a
+   ``pool`` the job comes from ``PoolManager.job_from_template``, which
+   keeps the template's reward for the block's distribution.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import itertools
 import logging
 import struct
@@ -88,11 +92,12 @@ def build_coinbase_halves(height: int, reward: int, payout_script: bytes,
 class TemplateSource:
     """Polls a chain node and originates jobs (docstring at module top)."""
 
-    def __init__(self, chain, *, algorithm: str = "sha256d",
+    def __init__(self, chain, *, pool=None, algorithm: str = "sha256d",
                  poll_seconds: float = 2.0, extranonce1_len: int = 4,
                  extranonce2_size: int = 4, payout_script: bytes = b"",
                  coinbase_tag: bytes = b"/otedama/"):
         self.chain = chain
+        self.pool = pool                    # PoolManager (reward bookkeeping)
         self.algorithm = algorithm
         self.poll_seconds = poll_seconds
         self.extranonce1_len = extranonce1_len
@@ -172,16 +177,22 @@ class TemplateSource:
 
     def _emit(self, t: BlockTemplate, coinb1: bytes, coinb2: bytes,
               clean: bool) -> Job:
-        job = Job(
-            job_id=f"tmpl-{next(self._counter):x}",
-            prev_hash=t.prev_hash, coinb1=coinb1, coinb2=coinb2,
-            merkle_branch=list(t.merkle_branch), version=t.version,
-            nbits=t.nbits, ntime=t.ntime, clean=clean,
-            algorithm=self.algorithm,
-            extranonce2_size=self.extranonce2_size,
-            block_number=t.height,
-            share_target=tgt.bits_to_target(t.nbits),
-        )
+        if self.pool is not None:
+            job = self.pool.job_from_template(
+                dataclasses.replace(t, coinb1=coinb1, coinb2=coinb2),
+                algorithm=self.algorithm)
+            job.clean = clean
+        else:
+            job = Job(
+                job_id=f"tmpl-{next(self._counter):x}",
+                prev_hash=t.prev_hash, coinb1=coinb1, coinb2=coinb2,
+                merkle_branch=list(t.merkle_branch), version=t.version,
+                nbits=t.nbits, ntime=t.ntime, clean=clean,
+                algorithm=self.algorithm,
+                extranonce2_size=self.extranonce2_size,
+                block_number=t.height,
+                share_target=tgt.bits_to_target(t.nbits),
+            )
         self._jobs[job.job_id] = job
         if len(self._jobs) > 64:
             for jid in list(self._jobs)[:-32]:

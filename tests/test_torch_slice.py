@@ -181,7 +181,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "otedama_tpu_torch.db.database",
             "otedama_tpu_torch.runtime.supervision",
             "otedama_tpu_torch.runtime.failure",
-            "otedama_tpu_torch.utils.netpool"} <= set(modules)
+            "otedama_tpu_torch.utils.netpool",
+            "otedama_tpu_torch.stratum.protocol",
+            "otedama_tpu_torch.stratum.server",
+            "otedama_tpu_torch.stratum.client",
+            "otedama_tpu_torch.stratum.resume",
+            "otedama_tpu_torch.pool.failover",
+            "otedama_tpu_torch.engine.vardiff",
+            "otedama_tpu_torch.security.validation",
+            "otedama_tpu_torch.security.ratelimit",
+            "otedama_tpu_torch.security.ddos"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -4,10 +4,11 @@
 Builds the port's kernels from the sources in this checkout (one nvcc per
 source, started together), drives the solo sha256d and scrypt main paths,
 the pool ledger's share validation, the supervised engine, warm
-algorithm switching, the chain RPC client and the stratum pool and client
+algorithm switching, the chain RPC client, the stratum pool and client
 (pool mode with local mining, vardiff, upstream failover, a scrypt pool)
-through the entry points a user calls, and checks every phase; any
-failure exits non-zero. Phases:
+and the P2P share-chain pool with PostgreSQL books through the entry
+points a user calls, and checks every phase; any failure exits non-zero.
+Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    registers and spills of the hot kernels (``-Xptxas -v``) and their hot
@@ -139,7 +140,27 @@ failure exits non-zero. Phases:
    (the ``romix`` tier, B5) at share difficulty 2^-16 for 10 s: every
    share digested by ``hashlib.scrypt`` on the validation executor and
    re-hashed here; the books equal the client's accepts; the mock
-   chain's refusals counted; V's peak memory.
+   chain's refusals counted; V's peak memory;
+26. ``cli p2p --mine``: an ``Application`` as ``cmd_p2p`` sets it, with
+   validation at its defaults on the card, the books in PostgreSQL
+   (``tests/pg_emulator.py``'s v3 wire-protocol server on loopback,
+   reached by the vendored pgwire driver) and phase 22's stratum and
+   mock-chain settings, joins an overlay of 16 of the port's P2P nodes
+   (a process of their own, on loopback TCP) holding 10,000 shares at
+   difficulty 1e-8; it catches up by locator sync (pages of 200, each a
+   B2 call), then verifies 10 s of SHARE_BATCH gossip (500 a second, one
+   share in 256 forged) while B1 mines for its stratum pool, then 2 s of
+   page-sized batches with the engine stopped. Tips and ``weights()``
+   equal everywhere and to ``weights_full()``; every verdict equals
+   hashlib's; forged shares never linked nor relayed; B2's launches equal
+   the validator's device batches; no verify failure, device error or
+   tripwire mismatch; the books exact three ways; B2 held against its plain
+   version on a page and a batch; the engine at 97% of phase 5's rate
+   or more over the gossip window;
+27. a scrypt share chain: phase 26's app with ``mining.algorithm =
+   "scrypt"`` and mining off catches up 1,200 scrypt shares from one node
+   in 6 pages, each one call of the scrypt verify path around B5; every
+   verdict equals hashlib.scrypt's.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2797,6 +2818,700 @@ def pool_phases(dev, card: str, kernel_rate: float) -> dict:
                 b5=scrypt_pool_phase(dev, card))
 
 
+# -- phases 26-27: the P2P share-chain pool on the card --------------------------
+
+P2P_SEEDS = 16            # the reference's sharechain bench: config.nodes (r09)
+P2P_WORKERS = 256
+P2P_CHAIN = 10_000        # one PPLNS window (8,192) and 1,808 more
+# about 43 host hashes a share: the overlay grinds 10,000 shares, then a
+# batch of 500 a second; difficulty_to_target keeps it a compact target
+P2P_DIFFICULTY = 1e-8
+P2P_BATCH = 500           # MAX_SHARE_BATCH: one SHARE_BATCH flood a second
+P2P_GOSSIP_S = 10.0
+P2P_FORGE_EVERY = 256     # one share in 256 forged
+P2P_IDLE_S = 2.0          # the window with the engine stopped
+P2P_IDLE_BATCH = 200      # a sync page's size, one flood each 0.1 s in it
+SCRYPT_P2P_CHAIN = 1_200
+# a target near 2^255: hashlib.scrypt grinds a share in one or two tries
+SCRYPT_P2P_DIFFICULTY = 2.0 ** -31
+
+
+def load_pg_emulator():
+    """``tests/pg_emulator.py`` (a PostgreSQL v3 wire-protocol server over
+    SQLite, threads on loopback), loaded by path, with TCP_NODELAY on its
+    accepted sockets as a PostgreSQL backend sets it: the emulator writes
+    CommandComplete and ReadyForQuery apart, and Nagle would hold the
+    second behind the client's delayed ACK (~40 ms a statement)."""
+    import importlib.util
+    import socket
+
+    path = os.path.join(ROOT, "tests", "pg_emulator.py")
+    check(os.path.exists(path), f"{path} is missing: the PostgreSQL phases "
+          "need the repository's tests/pg_emulator.py")
+    spec = importlib.util.spec_from_file_location("otedama_pg_emulator", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    class Emulator(mod.PgEmulator):
+        def _serve(self, sock):
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            super()._serve(sock)
+
+    return Emulator
+
+
+def p2p_app(dev, algorithm: str, difficulty: float, dsn: str, chain,
+            bootstrap: list, mine: bool):
+    """An ``Application`` configured as ``cli p2p [--mine]`` sets it (p2p
+    and pool on), with validation at its defaults on the card, the books
+    in PostgreSQL at ``dsn``, phase 22's stratum and mock-chain settings,
+    and the node bootstrapping to ``bootstrap`` on loopback."""
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig, validate_config
+
+    cfg = AppConfig()
+    cfg.p2p.enabled = True
+    cfg.pool.enabled = True
+    cfg.mining.enabled = mine
+    cfg.mining.device = str(dev)
+    cfg.mining.algorithm = algorithm
+    cfg.mining.worker_name = POOL_WORKER
+    cfg.validation.enabled = True
+    cfg.pool.database = dsn
+    cfg.stratum.enabled = True
+    cfg.stratum.host = "127.0.0.1"
+    cfg.stratum.port = 0
+    cfg.stratum.initial_difficulty = 1.0
+    cfg.work.enabled = True
+    cfg.work.poll_seconds = 0.5
+    cfg.p2p.host = "127.0.0.1"
+    cfg.p2p.port = 0
+    cfg.p2p.share_difficulty = difficulty
+    cfg.p2p.bootstrap = [f"127.0.0.1:{port}" for port in bootstrap]
+    errors = validate_config(cfg)
+    check(not errors, f"p2p config refused: {errors}")
+    return Application(cfg, chain=chain)
+
+
+def compact_round_trip(difficulty: float) -> int:
+    """The share target a chain at ``difficulty`` claims, checked to be a
+    valid compact target that meets the chain's floor."""
+    from otedama_tpu_torch.kernels import target as tgt
+
+    exact = tgt.difficulty_to_target(difficulty)
+    claimed = tgt.bits_to_target(tgt.target_to_bits(exact))
+    check(0 < claimed <= exact < 1 << 256
+          and claimed >= exact - (exact >> 15),
+          f"difficulty {difficulty:g}: compact target {claimed:#x} for "
+          f"{exact:#x}")
+    return claimed
+
+
+class VerifyLog:
+    """The validator's ``verify_batch``, each call recorded: its start, its
+    time, its checks and verdicts, and whether the engine was mining."""
+
+    def __init__(self, validator, engine):
+        self.calls, self.engine = [], engine
+        self.verify = validator.verify_batch
+        validator.verify_batch = self
+
+    async def __call__(self, checks):
+        mining = (self.engine is not None
+                  and self.engine.state.value == "running")
+        t0 = time.monotonic()
+        verdicts = await self.verify(checks)
+        self.calls.append((t0, time.monotonic() - t0, list(checks),
+                           list(verdicts), mining))
+        return verdicts
+
+
+def sha256d_id(header: bytes) -> bytes:
+    """A share's id: sha256d of its header, whatever its algorithm."""
+    return hashlib.sha256(hashlib.sha256(header).digest()).digest()
+
+
+class LoopLag:
+    """How late the event loop wakes a 10 ms sleep: each sample's start
+    and its lateness, for the share of the loop other work holds."""
+
+    def __init__(self):
+        self.samples, self._task = [], None
+
+    async def _poll(self):
+        while True:
+            t0 = time.monotonic()
+            await asyncio.sleep(0.01)
+            self.samples.append((t0, time.monotonic() - t0 - 0.01))
+
+    def start(self):
+        self._task = asyncio.get_running_loop().create_task(self._poll())
+
+    def stop(self):
+        self._task.cancel()
+
+    def between(self, t0: float, t1: float) -> str:
+        return quantiles([lag for t, lag in self.samples if t0 <= t <= t1])
+
+
+def hashlib_verdict(check_) -> bool:
+    value = (scrypt_value(check_.header) if check_.algorithm == "scrypt"
+             else sha256d_value(check_.header))
+    return value <= check_.target
+
+
+def forge(sc, share):
+    """``tests/test_validation.py``'s forgery: a nonce byte flipped after
+    grinding, the claim untouched. At an easy share target a flipped
+    nonce can still meet it (about one in 43 at 1e-8), so the flip is
+    the first of 0xFF, 0xFE, ... whose digest fails hashlib's check."""
+    for mask in range(0xFF, 0, -1):
+        raw = bytearray(share.header)
+        raw[76] ^= mask
+        if sha256d_value(bytes(raw)) > share.target:
+            return sc.Share.from_payload({**share.to_payload(),
+                                          "header": bytes(raw).hex()})
+    raise SmokeFailure("no nonce byte flip forges the share")
+
+
+def grind(sc, prev: bytes, first: int, count: int, difficulty: float,
+          algorithm: str = "sha256d", forge_every: int = 0):
+    """``count`` shares of one lineage from ``prev`` (workers in turn),
+    each ``forge_every``-th ground off the tip without advancing it and
+    then forged. Returns (shares in order, the forged ids)."""
+    claims = [(f"p2p.w{(first + i) % P2P_WORKERS:03d}", f"job{first + i}")
+              for i in range(count)]
+    forged_at = {i for i in range(count)
+                 if forge_every and (first + i) % forge_every == forge_every - 1}
+    shares = sc.mine_share_chain(prev, claims, difficulty, algorithm=algorithm,
+                                 advance=[i not in forged_at
+                                          for i in range(count)])
+    for i in forged_at:
+        shares[i] = forge(sc, shares[i])
+    return shares, {shares[i].share_id for i in forged_at}
+
+
+async def seed_overlay(sc, params, lineage, n: int):
+    """``n`` of the port's ``P2PPool``s on loopback TCP, no validator, each
+    chain preloaded with ``lineage`` by ``ShareChain.connect``, linked as
+    a ring with shortcuts (p2p/memnet.py's topology)."""
+    from otedama_tpu_torch.p2p.memnet import ring_with_shortcuts
+    from otedama_tpu_torch.p2p.node import NodeConfig
+    from otedama_tpu_torch.p2p.pool import P2PPool
+
+    seeds = [P2PPool(NodeConfig(host="127.0.0.1", port=0, max_peers=64),
+                     params) for _ in range(n)]
+    for seed in seeds:
+        for share in lineage:
+            check(seed.chain.connect(share) == "accepted", "preload refused")
+        await seed.start()
+    edges = ring_with_shortcuts(n, shortcuts_per_node=2) if n > 1 else []
+    for a, b in edges:
+        await seeds[a].node.connect("127.0.0.1", seeds[b].node.port)
+    await until(lambda: all(len(s.node.peers) == sum(i in e for e in edges)
+                            for i, s in enumerate(seeds)),
+                30.0, "the overlay's links")
+    return seeds, edges
+
+
+def overlay_process(conn, n: int, length: int, difficulty: float,
+                    algorithm: str) -> None:
+    """The overlay the app joins, in a process of its own (a deployment's
+    peers are other machines): ``n`` seeds holding one lineage of
+    ``length`` shares. Serves the phase's requests over ``conn``:
+    ("flood", (count, forge_every)) has seed 0 grind ``count`` shares on
+    its tip and flood them as one SHARE_BATCH; ("state", forged ids)
+    reads every seed; ("stop", None) ends it."""
+    logging.getLogger("otedama.p2p.pool").setLevel(logging.ERROR)
+    try:
+        asyncio.run(_overlay_serve(conn, n, length, difficulty, algorithm))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+async def _overlay_serve(conn, n, length, difficulty, algorithm):
+    from otedama_tpu_torch.p2p import sharechain as sc
+    from otedama_tpu_torch.p2p.messages import MessageType, P2PMessage
+
+    loop = asyncio.get_running_loop()
+    t0 = time.monotonic()
+    lineage, _ = grind(sc, sc.GENESIS, 0, length, difficulty, algorithm)
+    grind_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    params = sc.ChainParams(algorithm=algorithm, min_difficulty=difficulty)
+    seeds, edges = await seed_overlay(sc, params, lineage, n)
+    origin, first = seeds[0], length
+    tries = sum(int.from_bytes(s.header[76:80], "big") + 1 for s in lineage)
+    conn.send(("ready", dict(ports=[s.node.port for s in seeds], edges=edges,
+                             grind_s=grind_s, tries=tries,
+                             overlay_s=time.monotonic() - t0)))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        while True:
+            cmd, arg = await loop.run_in_executor(None, conn.recv)
+            if cmd == "flood":
+                count, forge_every = arg
+                batch, bad = await loop.run_in_executor(
+                    pool, grind, sc, origin.chain.tip, first, count,
+                    difficulty, algorithm, forge_every)
+                first += count
+                for s in batch:
+                    if s.share_id not in bad:
+                        check(origin.chain.connect(s) == "accepted",
+                              "the origin refused its own share")
+                await origin.node.broadcast(P2PMessage(
+                    MessageType.SHARE_BATCH,
+                    {"shares": [s.to_payload() for s in batch]}))
+                conn.send(("flooded", sorted(bad)))
+            elif cmd == "state":
+                conn.send(("state", dict(
+                    tips=[(s.chain.tip, s.chain.height) for s in seeds],
+                    weights=[s.weights() for s in seeds],
+                    pow=[s.rejects.get("pow", 0) for s in seeds],
+                    linked=[any(f in s.chain for f in arg) for s in seeds],
+                    shares=first)))
+            else:
+                for s in seeds:
+                    await s.stop()
+                conn.send(("stopped", None))
+                return
+
+
+class Overlay:
+    """The phase's end of ``overlay_process``."""
+
+    def __init__(self, n: int, length: int, difficulty: float,
+                 algorithm: str = "sha256d"):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=overlay_process, daemon=True,
+                                args=(child, n, length, difficulty, algorithm))
+        self.proc.start()
+        self.info = self._reply("ready", 300.0)
+
+    def _reply(self, want: str, timeout: float = 60.0):
+        check(self.conn.poll(timeout), f"the overlay process gave no {want}")
+        kind, value = self.conn.recv()
+        check(kind == want, f"the overlay process: {kind}: {value}")
+        return value
+
+    async def call(self, cmd: str, arg=None, timeout: float = 60.0):
+        self.conn.send((cmd, arg))
+        reply = {"flood": "flooded", "state": "state", "stop": "stopped"}[cmd]
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self._reply, reply, timeout)
+
+    def close(self) -> None:
+        self.proc.join(30.0)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+
+
+def b2_beside(dev, words, limbs) -> str:
+    """When a B2 call on one stream is done if it is launched 50 ms into
+    another stream's kernel: a 2^31-nonce B1 launch (B2 on a stream of
+    normal and of the highest priority), and a one-block spin of the
+    same length. Launches here are outside every counted window."""
+    import torch
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+
+    a = torch.cuda.Stream(dev)
+    low, high = torch.cuda.Stream(dev), torch.cuda.Stream(
+        dev, priority=torch.cuda.Stream.priority_range()[1])
+    jw = sc_k.pack_job_words([0] * 8, [0] * 3, 0, [0] * 8)
+    out_a = torch.empty(sc_k.winner_buffer_words(16), dtype=torch.int32,
+                        device=dev)
+    out_b = torch.empty_like(out_a)
+    n = len(words)
+    sc_k.sha256d_verify(words, limbs, n, stream=low, out=out_b)
+    with torch.cuda.stream(a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        e0.record(a)
+        torch.cuda._sleep(1 << 26)
+        e1.record(a)
+    e1.synchronize()
+    cycles = int((1 << 26) * 289.0 / e0.elapsed_time(e1))
+    rows = []
+    for name, other, stream in (
+            ("B1", lambda: sc_k.sha256d_search(jw, batch=MAIN_BATCH, device=dev,
+                                               stream=a, out=out_a), low),
+            ("B1, B2 at the highest priority", lambda: sc_k.sha256d_search(
+                jw, batch=MAIN_BATCH, device=dev, stream=a, out=out_a), high),
+            ("a one-block spin", lambda: torch.cuda._sleep(cycles), low)):
+        waits = []
+        for _ in range(3):
+            with torch.cuda.stream(a):
+                other()
+            done_a = torch.cuda.Event()
+            done_a.record(a)
+            time.sleep(0.05)
+            t0 = time.monotonic()
+            sc_k.sha256d_verify(words, limbs, n, stream=stream, out=out_b)
+            done_b = torch.cuda.Event()
+            done_b.record(stream)
+            while not done_b.query():
+                pass
+            waits.append((time.monotonic() - t0) * 1e3)
+            done_a.synchronize()
+        rows.append(f"beside {name} " + ", ".join(f"{w:.2f}" for w in waits))
+    return "; ".join(rows)
+
+
+def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
+    """Phase 26: ``cli p2p --mine`` on the card with PostgreSQL books.
+    Returns B1's and B2's launches and B2's max_abs_err at the path's
+    shapes."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+
+    phase(f"26 `cli p2p --mine` on the card: catch-up of {P2P_CHAIN} shares "
+          f"from {P2P_SEEDS} loopback nodes, {P2P_GOSSIP_S:.0f} s of "
+          f"SHARE_BATCH gossip verified by B2, B1 mining for its stratum "
+          f"pool, the books in PostgreSQL (tests/pg_emulator.py)")
+    claimed = compact_round_trip(P2P_DIFFICULTY)
+    chain = MockChainClient(nbits=0x1D00FFFF)
+    Emulator = load_pg_emulator()
+    overlay = Overlay(P2P_SEEDS, P2P_CHAIN, P2P_DIFFICULTY)
+    info = overlay.info
+    out: dict = {}
+
+    async def run26(emu):
+        app = p2p_app(dev, "sha256d", P2P_DIFFICULTY, emu.dsn, chain,
+                      info["ports"], mine=True)
+        try:
+            await app.start()
+            check(app.p2p.validator is app.validator is not None,
+                  "the validator is not on the gossip path")
+            check(type(app.db).__name__ == "PostgresDatabase"
+                  and app.db._kind == "pgwire",
+                  f"books on {type(app.db).__name__}")
+            booked = Booked(app.server, app.pool.on_share)
+            gate = Gate(app.engine)
+            vlog = VerifyLog(app.validator, app.engine)
+            await until(lambda: len(app.p2p.node.peers) == P2P_SEEDS, 30.0,
+                        "the app's links to the overlay")
+            await engine_running(app)
+            watch.start(app.engine)
+            lag.start()
+            # catch-up: locator sync from every peer, page by page
+            t_sync = time.monotonic()
+            await app.p2p.request_sync()
+            await until(lambda: app.p2p.chain.height == P2P_CHAIN, 120.0,
+                        "the catch-up")
+            out["catchup_s"] = time.monotonic() - t_sync
+            out["catchup_calls"] = len(vlog.calls)
+            # gossip: a batch of 500 a second from seed 0, relayed by the
+            # others; one share in 256 forged
+            forged: set = set()
+            t_g0 = time.monotonic()
+            for k in range(int(P2P_GOSSIP_S)):
+                await asyncio.sleep(max(0.0, t_g0 + k - time.monotonic()))
+                forged |= set(await overlay.call(
+                    "flood", (P2P_BATCH, P2P_FORGE_EVERY)))
+            t_g1 = t_g0 + P2P_GOSSIP_S
+            await asyncio.sleep(max(0.0, t_g1 - time.monotonic()))
+            height = P2P_CHAIN + int(P2P_GOSSIP_S) * P2P_BATCH - len(forged)
+            await until(lambda: app.p2p.chain.height == height, 60.0,
+                        "the app at the gossip's height")
+            watch.stop()
+            out["gossip_calls"] = len(vlog.calls)
+            # the engine stopped: the books, then page-sized batches for
+            # P2P_IDLE_S, then the overlay's convergence. The restart lock
+            # keeps the supervisors from restarting it meanwhile
+            await gate.cut()
+            async with app._restart_lock:
+                await app.engine.stop()
+                rows = app.db.query("SELECT worker, COUNT(*) AS c "
+                                    "FROM shares GROUP BY worker")
+                out["rows"] = {r["worker"]: r["c"] for r in rows}
+                out["client"] = dict(app.client.stats)
+                tq = time.monotonic()
+                app.db.query("SELECT COUNT(*) AS c FROM shares")
+                out["pg_round_trip_s"] = time.monotonic() - tq
+                t_i0 = time.monotonic()
+                k = 0
+                while time.monotonic() < t_i0 + P2P_IDLE_S:
+                    await asyncio.sleep(max(0.0, t_i0 + 0.1 * k
+                                            - time.monotonic()))
+                    await overlay.call("flood", (P2P_IDLE_BATCH, 0))
+                    k += 1
+                height += k * P2P_IDLE_BATCH
+                await until(lambda: app.p2p.chain.height == height, 60.0,
+                            "the app at the idle window's height")
+                t_c = time.monotonic()
+                while True:
+                    state = await overlay.call("state", sorted(forged))
+                    if set(state["tips"]) == {(app.p2p.chain.tip, height)}:
+                        break
+                    check(time.monotonic() < t_c + 120.0,
+                          f"the overlay's tips: {set(state['tips'])}")
+                    await asyncio.sleep(0.5)
+            lag.stop()
+            out.update(
+                t_sync=t_sync, t_i0=t_i0, t_c=t_c,
+                failures=app.failure_detector.snapshot(),
+                recovery=app.recovery.snapshot(),
+                t_g0=t_g0, t_g1=t_g1, forged=forged, booked=booked,
+                vlog=vlog, held=gate.held, state=state, height=height,
+                relay_s=time.monotonic() - t_c,
+                weights=app.p2p.weights(), full=app.p2p.chain.weights_full(),
+                app_linked=any(f in app.p2p.chain for f in forged),
+                p2p=app.p2p.snapshot(), stats=dict(app.validator.stats),
+                b2=sc_k.verify_launches.value, b1=sc_k.launches.value,
+                plain=st.calls.value)
+        finally:
+            await app.stop()
+            await overlay.call("stop")
+
+    sc_k.launches.reset()
+    sc_k.verify_launches.reset()
+    st.calls.reset()
+    watch, lag = HashWatch(), LoopLag()
+    # each node logs each forged share it rejects: counted below instead
+    logging.getLogger("otedama.p2p.pool").setLevel(logging.ERROR)
+    try:
+        with Emulator() as emu:
+            t_run = time.monotonic()
+            asyncio.run(run26(emu))
+            run_s = time.monotonic() - t_run
+    finally:
+        logging.getLogger("otedama.p2p.pool").setLevel(logging.NOTSET)
+        overlay.close()
+    vlog, snap, stats, forged = out["vlog"], out["p2p"], out["stats"], out["forged"]
+    state = out["state"]
+    # the chain: every node on one tip, the weights exact and equal
+    check(out["weights"] == out["full"] and all(
+        w == out["weights"] for w in state["weights"]),
+          "weights() != weights_full() or the seeds' weights")
+    check(state["shares"] == out["height"] + len(forged),
+          f"{state['shares']} shares flooded, height {out['height']}, "
+          f"{len(forged)} forged")
+    # the verdicts: every one equals hashlib's; the forged shares failed
+    # PoW, were never linked and never relayed by an honest node
+    sizes, wrong, failed = [], 0, set()
+    for _, _, checks, verdicts, _ in vlog.calls:
+        sizes.append(len(checks))
+        for c, v in zip(checks, verdicts):
+            wrong += v != hashlib_verdict(c)
+            if not v:
+                failed.add(sha256d_id(c.header))
+    check(wrong == 0, f"{wrong} verdicts differ from hashlib's")
+    # a forged share whose batchmates a node already holds arrives alone
+    # and takes the per-share host path, around the validator
+    check(failed <= forged and snap["rejects"] == {"pow": len(forged)},
+          f"rejects {snap['rejects']}, failed verdicts {len(failed)}, forged "
+          f"{len(forged)}")
+    check(not out["app_linked"] and not any(state["linked"]),
+          "a forged share was linked")
+    origin_peers = {i for e in info["edges"] if 0 in e for i in e} - {0}
+    check(all(n == (len(forged) if i in origin_peers else 0)
+              for i, n in enumerate(state["pow"])),
+          f"forged shares relayed: pow rejects by node {state['pow']}, the "
+          f"origin's neighbours {sorted(origin_peers)}")
+    # the kernels: B2 once a device batch, each at least min_batch shares
+    device = [n for n in sizes if n >= 128]
+    check(out["b2"] == stats["device_batches"] == len(device) > 0
+          and stats["validated_device"] == sum(device),
+          f"B2 launches {out['b2']}, device batches {stats['device_batches']}"
+          f", calls of >= 128 shares {len(device)}")
+    check(snap["verify_failures"] == 0 and stats["device_errors"] == 0
+          and stats["tripwire_mismatches"] == 0 and stats["overflows"] == 0,
+          f"rails: verify failures {snap['verify_failures']}, device errors "
+          f"{stats['device_errors']}, tripwire mismatches "
+          f"{stats['tripwire_mismatches']}, overflows {stats['overflows']}")
+    check(out["b1"] > 0 and out["plain"] == 0,
+          f"B1 launches {out['b1']}, plain-version calls {out['plain']}")
+    # the books, three ways: the card's client accepts, the ledger hook's
+    # deliveries, the share rows read back over pgwire
+    seen = out["client"]["shares_accepted"]
+    delivered = out["booked"].by_worker().get(POOL_WORKER, 0)
+    check(seen > 0 and seen == delivered == out["rows"].get(POOL_WORKER)
+          and set(out["rows"]) == {POOL_WORKER}
+          and out["client"]["shares_rejected"] == 0,
+          f"books: client {seen}, on_share {delivered}, rows {out['rows']}")
+    check_accepted(out["booked"].shares)
+    check(chain.submitted, "no card block on the mock chain")
+    # B2 against its plain version at the path's shapes: a catch-up page
+    # and a gossip batch with its forged shares (not counted above)
+    max_err = 0
+    k = sc_k.K_WINNERS
+    for name, (_, _, checks, _, _) in (
+            ("a sync page", vlog.calls[out["catchup_calls"] - 1]),
+            ("a gossip batch", max(vlog.calls[out["catchup_calls"]:
+                                              out["gossip_calls"]],
+                                   key=lambda c: len(c[2])))):
+        words = torch.from_numpy(st.headers_to_words(
+            [c.header for c in checks]).view(np.int32)).to(dev)
+        limbs = torch.from_numpy(np.stack([tgt.target_to_limbs(c.target)
+                                           for c in checks]).view(np.int32)).to(dev)
+        a = sc_k.sha256d_verify(words, limbs, len(checks), k=k).cpu().numpy()
+        b = st.sha256d_verify_step(words, limbs, len(checks) - 1,
+                                   k=k).cpu().numpy()
+        max_err = max(max_err, int(np.abs(a.astype(np.int64)
+                                          - b.astype(np.int64)).max()))
+        check(max_err == 0, f"B2 != plain on {name}")
+        print(f"   B2 vs plain version on {name} ({len(checks)} shares, "
+              f"{int(b.view(np.uint32)[2 * k])} failures): equal", flush=True)
+        if name == "a sync page":
+            beside = b2_beside(dev, words, limbs)
+    rate, rate_text = watch.between(out["t_g0"], out["t_g1"])
+    catch = [c[1] for c in vlog.calls[:out["catchup_calls"]] if c[4]]
+    gossip = [c[1] for c in vlog.calls[out["catchup_calls"]:out["gossip_calls"]]
+              if c[4]]
+    idle = [c[1] for c in vlog.calls[out["gossip_calls"]:] if not c[4]]
+    print(f"   the overlay's process: {P2P_CHAIN} shares ground on the host in "
+          f"{info['grind_s']:.2f} s (difficulty {P2P_DIFFICULTY:g}, target "
+          f"{claimed:#x}, {info['tries']} hashes); {P2P_SEEDS} nodes "
+          f"preloaded and linked ({len(info['edges'])} links) in "
+          f"{info['overlay_s']:.2f} s", flush=True)
+    print(f"   catch-up: {P2P_CHAIN} shares in {out['catchup_s']:.3f} s = "
+          f"{P2P_CHAIN / out['catchup_s']:.0f} shares/s, "
+          f"{snap['sync_pages_received']} sync pages received, "
+          f"{out['catchup_calls']} verify_batch calls; every node at height "
+          f"{out['height']}, one tip (the overlay {out['relay_s']:.2f} s "
+          f"after the app); weights() = weights_full() = the seeds' "
+          f"({len(out['weights'])} workers)", flush=True)
+    print(f"   verify_batch latency: catch-up pages with B1 mining "
+          f"{quantiles(catch)}; gossip batches of {P2P_BATCH} with B1 mining "
+          f"{quantiles(gossip)}; batches of {P2P_IDLE_BATCH} over "
+          f"{P2P_IDLE_S:.0f} s with the engine stopped {quantiles(idle)}; "
+          f"B2 on a page, ms from its launch to done, launched 50 ms into "
+          f"another stream's kernel: {beside}", flush=True)
+    print(f"   verdicts: {sum(sizes)} shares in {len(sizes)} calls, every one "
+          f"= hashlib's; {len(forged)} forged ({len(failed)} failed in "
+          f"verify_batch, the rest alone on the per-share host path): pow "
+          f"rejects {snap['rejects']}, none linked, none relayed (pow "
+          f"rejects by node {state['pow']}); B2 launches {out['b2']} = "
+          f"device batches (sizes {min(device)}-{max(device)}); host batches "
+          f"{stats['host_batches']}; verify failures, device errors, tripwire "
+          f"mismatches 0 ({stats['tripwire_checks']} tripwire checks)",
+          flush=True)
+    print(f"   books in PostgreSQL (the emulator: its rates are no measure of "
+          f"PostgreSQL): client accepts {seen} = on_share {delivered} = rows "
+          f"{out['rows'].get(POOL_WORKER, 0)} ({out['held']} held at the cut); "
+          f"{len(chain.submitted)} card blocks; a query's round trip "
+          f"{out['pg_round_trip_s'] * 1e3:.2f} ms", flush=True)
+    print(f"   the app's event loop, lateness of a 10 ms sleep: catch-up "
+          f"{lag.between(out['t_sync'], out['t_g0'])}; gossip "
+          f"{lag.between(out['t_g0'], out['t_g1'])}; engine stopped "
+          f"{lag.between(out['t_i0'], out['t_c'])}; failure detector "
+          f"{out['failures']}; recovery {out['recovery']}", flush=True)
+    print(f"   engine over the {P2P_GOSSIP_S:.0f} s gossip window: {rate_text} "
+          f"= {rate / kernel_rate:.1%} of phase 5's kernel rate "
+          f"{kernel_rate / 1e9:.3f} GH/s; B1 launches {out['b1']}; the phase "
+          f"{run_s:.1f} s; {card}", flush=True)
+    check(rate >= 0.97 * kernel_rate, f"the engine at {rate / kernel_rate:.1%} "
+          "of B1's rate over the gossip window (limit 97%)")
+    return dict(b1=out["b1"], b2=out["b2"], max_err=max_err)
+
+
+def scrypt_p2p_phase(dev, card: str) -> dict:
+    """Phase 27: phase 26's app on a scrypt share chain, mining off.
+    Returns B5's launches and the verify path's max_abs_err."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import scrypt_torch as sct
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+
+    phase(f"27 a scrypt share chain: `cli p2p` (no mining) catching up "
+          f"{SCRYPT_P2P_CHAIN} scrypt shares from one node, each page "
+          f"through the scrypt verify path around B5")
+    claimed = compact_round_trip(SCRYPT_P2P_DIFFICULTY)
+    Emulator = load_pg_emulator()
+    overlay = Overlay(1, SCRYPT_P2P_CHAIN, SCRYPT_P2P_DIFFICULTY, "scrypt")
+    info = overlay.info
+    out: dict = {}
+
+    async def run27(emu):
+        app = p2p_app(dev, "scrypt", SCRYPT_P2P_DIFFICULTY, emu.dsn,
+                      MockChainClient(), info["ports"], mine=False)
+        try:
+            await app.start()
+            vlog = VerifyLog(app.validator, None)
+            await until(lambda: len(app.p2p.node.peers) == 1, 30.0,
+                        "the app's link")
+            t_sync = time.monotonic()
+            await app.p2p.request_sync()
+            await until(lambda: app.p2p.chain.height == SCRYPT_P2P_CHAIN,
+                        120.0, "the scrypt catch-up")
+            out.update(
+                catchup_s=time.monotonic() - t_sync, vlog=vlog,
+                tip=app.p2p.chain.tip, state=await overlay.call("state", []),
+                weights=app.p2p.weights(), full=app.p2p.chain.weights_full(),
+                p2p=app.p2p.snapshot(), stats=dict(app.validator.stats),
+                romix=scc.romix_launches.value,
+                verify=scc.verify_launches.value, plain=sct.calls.value)
+        finally:
+            await app.stop()
+            await overlay.call("stop")
+
+    for counter in (scc.romix_launches, scc.verify_launches, sct.calls):
+        counter.reset()
+    try:
+        with Emulator() as emu:
+            asyncio.run(run27(emu))
+    finally:
+        overlay.close()
+    vlog, stats, snap, state = out["vlog"], out["stats"], out["p2p"], out["state"]
+    check(state["tips"] == [(out["tip"], SCRYPT_P2P_CHAIN)]
+          and out["weights"] == out["full"] == state["weights"][0],
+          "scrypt chain: tip or weights differ")
+    wrong = sum(v != hashlib_verdict(c) for _, _, checks, verdicts, _
+                in vlog.calls for c, v in zip(checks, verdicts))
+    check(wrong == 0 and all(all(verdicts) for *_, verdicts, _ in vlog.calls),
+          f"{wrong} scrypt verdicts differ from hashlib.scrypt's")
+    check(out["romix"] == out["verify"] == stats["device_batches"]
+          == len(vlog.calls) > 0 and out["plain"] == 0,
+          f"B5 launches {out['romix']}, verify launches {out['verify']}, "
+          f"device batches {stats['device_batches']}, calls "
+          f"{len(vlog.calls)}, plain {out['plain']}")
+    check(snap["verify_failures"] == 0 and stats["device_errors"] == 0
+          and stats["tripwire_mismatches"] == 0, "scrypt rails fired")
+    # the verify path against its plain version on one page
+    _, _, checks, _, _ = vlog.calls[0]
+    words = torch.from_numpy(st.headers_to_words(
+        [c.header for c in checks]).view(np.int32)).to(dev)
+    limbs = torch.from_numpy(np.stack([tgt.target_to_limbs(c.target)
+                                       for c in checks]).view(np.int32)).to(dev)
+    k = sc_k.K_WINNERS
+    a = scc.scrypt_verify(words, limbs, len(checks), k=k).cpu().numpy()
+    b = sct.scrypt_verify_step(words, limbs, len(checks) - 1,
+                               k=k).cpu().numpy()
+    max_err = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+    check(max_err == 0, "the scrypt verify path != plain on a sync page")
+    print(f"   {SCRYPT_P2P_CHAIN} scrypt shares ground by hashlib.scrypt in "
+          f"{info['grind_s']:.2f} s ({info['tries']} tries, difficulty "
+          f"{SCRYPT_P2P_DIFFICULTY:g}, target {claimed:#x}); catch-up in "
+          f"{out['catchup_s']:.3f} s = "
+          f"{SCRYPT_P2P_CHAIN / out['catchup_s']:.0f} shares/s, "
+          f"{snap['sync_pages_received']} pages; tips and weights equal; "
+          f"every verdict = hashlib.scrypt's; page verify "
+          f"{quantiles([c[1] for c in vlog.calls])}; B5 launches "
+          f"{out['romix']} = verify launches = device batches; the verify "
+          f"path = plain on a page ({len(checks)} lanes); {card}", flush=True)
+    return dict(b5=out["romix"], max_err=max_err)
+
+
+def p2p_phases(dev, card: str, kernel_rate: float) -> dict:
+    """Phases 26-27."""
+    return dict(sha256d=p2p_phase(dev, card, kernel_rate),
+                scrypt=scrypt_p2p_phase(dev, card))
+
 def main() -> int:
     import torch
 
@@ -3153,6 +3868,19 @@ def main() -> int:
     b1["launches"] += pooled["fleet"] + pooled["vardiff"] + pooled["failover"]
     b5["path"] += f"; scrypt pool (phase 25): {pooled['b5']}"
     b5["launches"] += pooled["b5"]
+    p2p = p2p_phases(dev, card, kernel_rate)
+    b1["path"] += f"; `cli p2p --mine` (phase 26): {p2p['sha256d']['b1']}"
+    b1["launches"] += p2p["sha256d"]["b1"]
+    b2_record["path"] += (f": {b2_record['launches']} launches; p2p sync "
+                          f"pages and SHARE_BATCH gossip (phase 26): "
+                          f"{p2p['sha256d']['b2']}")
+    b2_record["launches"] += p2p["sha256d"]["b2"]
+    b2_record["max_abs_err"] = max(b2_record["max_abs_err"],
+                                   p2p["sha256d"]["max_err"])
+    b5["path"] += (f"; scrypt share-chain sync pages through the verify path "
+                   f"(phase 27): {p2p['scrypt']['b5']}")
+    b5["launches"] += p2p["scrypt"]["b5"]
+    b5["max_abs_err"] = max(b5["max_abs_err"], p2p["scrypt"]["max_err"])
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)

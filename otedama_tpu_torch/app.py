@@ -16,12 +16,18 @@ branches, upstream failover, precompile-then-start,
   mining on, the engine mines for the pool through a loopback
   ``StratumClient``;
 - upstream (``upstreams``): the engine mines for outside pools through a
-  ``StratumClient``, re-pointed by a ``FailoverManager``.
+  ``StratumClient``, re-pointed by a ``FailoverManager``;
+- p2p (``p2p.enabled``, with the pool: ``cli p2p``): a ``P2PPool`` node
+  joins the gossip overlay and keeps the PoW-verified share chain,
+  catching up by locator sync; gossip batches and sync pages verify
+  through the one ``ValidationBackend`` (B2 for a sha256d chain, B5's
+  verify path for a scrypt chain) when ``validation.enabled``.
 
-A ``FailureDetector`` and a ``RecoveryManager`` supervise the engine. The
-reference's sharded front-end, Stratum V2, p2p, settlement, regions,
-merged mining and API tiers are not ported yet (``config/schema.py``
-refuses them by name).
+The books go to SQLite or PostgreSQL (``pool.database``). A
+``FailureDetector`` and a ``RecoveryManager`` supervise the engine. The
+reference's sharded front-end, Stratum V2, the durable share-chain
+store, settlement, regions, merged mining and API tiers are not ported
+yet (``config/schema.py`` refuses them by name).
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ class Application:
         self.db = None
         self.validator = None       # device-batched share validation
         self.failover = None        # upstream failover manager
+        self.p2p = None             # P2P share-chain node
         self._upstream_auth: dict[str, tuple[str, str]] = {}
         self._active_upstream = None
         self.worksource: TemplateSource | None = None
@@ -158,10 +165,13 @@ class Application:
         cfg = self.config
         if cfg.pool.enabled:
             await self._start_pool_side()
+        if cfg.p2p.enabled:
+            await self._start_p2p()
         if cfg.validation.enabled:
-            # the ledger's batch path verifies on this backend; the
-            # single-process server books share by share and never
-            # reaches it
+            # ONE backend for every batch producer: the ledger's batch
+            # path and the gossip handlers share the stats surface and the
+            # quarantine state. The single-process server books share by
+            # share and never reaches it
             from otedama_tpu_torch.runtime.validate import ValidationBackend
 
             self.validator = ValidationBackend(
@@ -172,15 +182,19 @@ class Application:
             )
             if self.pool is not None:
                 self.pool.validator = self.validator
+            if self.p2p is not None:
+                self.p2p.validator = self.validator
         # the listening sockets open only once every pool-side dependency
-        # is in place, before the first miner can connect
+        # (the p2p chain included) is in place, before the first miner can
+        # connect
         await self._start_stratum_listeners()
         if cfg.mining.enabled:
             await self._start_miner_side()
         await self._start_supervision()
         log.info("application started (%s)", ", ".join(
             name for name, on in (("mining", cfg.mining.enabled),
-                                  ("pool", cfg.pool.enabled)) if on
+                                  ("pool", cfg.pool.enabled),
+                                  ("p2p", cfg.p2p.enabled)) if on
         ) or "idle")
 
     async def _start_pool_side(self) -> None:
@@ -220,6 +234,38 @@ class Application:
         await self.pool.start()
         self._started.append(self.pool)
         self._start_worksource(chain, pool_cfg)
+
+    async def _start_p2p(self) -> None:
+        from otedama_tpu_torch.p2p.node import NodeConfig
+        from otedama_tpu_torch.p2p.pool import P2PPool
+        from otedama_tpu_torch.p2p.sharechain import ChainParams
+
+        cfg = self.config.p2p
+        bootstrap = []
+        for entry in cfg.bootstrap:
+            host, _, port = str(entry).rpartition(":")
+            if host:
+                bootstrap.append((host, int(port)))
+        self.p2p = P2PPool(
+            NodeConfig(
+                host=cfg.host, port=cfg.port, max_peers=cfg.max_peers,
+                bootstrap=bootstrap,
+            ),
+            # the share chain mines/verifies the pool's own algorithm;
+            # the consensus knobs come straight from config so every
+            # node of one deployment agrees on them
+            ChainParams(
+                algorithm=self.config.mining.algorithm,
+                min_difficulty=cfg.share_difficulty,
+                window=cfg.pplns_window,
+                max_reorg_depth=cfg.max_reorg_depth,
+                max_time_skew=cfg.max_time_skew,
+                share_interval=cfg.share_interval,
+                sync_page=cfg.sync_page,
+            ),
+        )
+        await self.p2p.start()
+        self._started.append(self.p2p)
 
     def _start_worksource(self, chain, pool_cfg) -> None:
         """The pool's own upstream: a TemplateSource originating jobs from
@@ -496,6 +542,8 @@ class Application:
             out["stratum"] = self.server.snapshot()
         if self.pool is not None:
             out["pool"] = self.pool.snapshot()
+        if self.p2p is not None:
+            out["p2p"] = self.p2p.snapshot()
         if self.worksource is not None:
             out["worksource"] = self.worksource.snapshot()
         if self.failure_detector is not None:

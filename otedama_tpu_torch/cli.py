@@ -1,11 +1,12 @@
-"""Command-line interface: ``start``, ``solo``, ``pool`` and
+"""Command-line interface: ``start``, ``solo``, ``pool``, ``p2p`` and
 ``benchmark`` (counterpart of ``otedama_tpu/cli.py``).
 
 Run as ``python -m otedama_tpu_torch.cli <command>``. Every command runs
 on the card (``mining.device`` / ``--device`` ``cuda``) unless asked for
 another device; ``start`` with ``upstreams`` in the config mines for
 those pools, ``pool --mine`` serves miners and mines for itself through a
-loopback stratum client.
+loopback stratum client, and ``p2p --mine`` does the same while its node
+keeps the share chain of the gossip overlay.
 """
 
 from __future__ import annotations
@@ -87,6 +88,17 @@ def cmd_pool(args) -> int:
     return asyncio.run(_run_app(cfg))
 
 
+def cmd_p2p(args) -> int:
+    from otedama_tpu_torch.config.schema import load_config
+
+    cfg = load_config(args.config)
+    cfg.p2p.enabled = True
+    cfg.pool.enabled = True
+    cfg.mining.enabled = args.mine
+    _setup_logging(cfg.logging.level, cfg.logging.file)
+    return asyncio.run(_run_app(cfg))
+
+
 def cmd_benchmark(args) -> int:
     _setup_logging("info")
     from otedama_tpu_torch.engine import algos
@@ -106,8 +118,8 @@ def cmd_benchmark(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="otedama-tpu-torch",
-        description="sha256d or scrypt mining and a stratum pool on a CUDA "
-                    "card (PyTorch port).",
+        description="sha256d or scrypt mining, a stratum pool and a P2P "
+                    "pool on a CUDA card (PyTorch port).",
     )
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -129,6 +141,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mine", action="store_true",
                    help="also mine locally, through a loopback client")
     p.set_defaults(fn=cmd_pool)
+
+    p = sub.add_parser("p2p", help="run a P2P pool node")
+    p.add_argument("--mine", action="store_true",
+                   help="also mine locally, through a loopback client")
+    p.set_defaults(fn=cmd_p2p)
 
     p = sub.add_parser("benchmark", help="benchmark the search backend")
     p.add_argument("-a", "--algorithm", default=None,

@@ -1,14 +1,14 @@
 """Configuration schema: YAML file + env overrides + validation
 (counterpart of ``otedama_tpu/config/schema.py``, with the sections the
-solo, pool and upstream paths read: mining, stratum, pool, work,
-validation, logging and ``upstreams``).
+solo, pool, upstream and p2p paths read: mining, stratum, pool, work,
+validation, p2p, logging and ``upstreams``).
 
 Field names, defaults and validation rules are the reference's;
 ``mining.device`` is the port's own (the torch device the backend runs
 on). A setting whose code has not been ported yet is refused by
 ``validate_config`` with the ROADMAP item that brings it: the sharded
-and fleet front-ends and Stratum V2 (A14), a PostgreSQL database (A6b),
-settlement and multi-region replication (A13). Precedence: env > file >
+and fleet front-ends and Stratum V2 (A14), the durable share-chain store
+(A6c), settlement and multi-region replication (A13). Precedence: env > file >
 defaults. YAML parsing uses pyyaml when present, else a minimal
 two-level parser.
 """
@@ -147,8 +147,7 @@ class PoolSettings:
     # per-payout network fee charged to the worker (atomic units); must
     # stay below minimum_payout or nothing is ever payable
     payout_fee: int = 1_000
-    # SQLite path (":memory:" for a throwaway ledger); a postgres:// DSN
-    # comes with ROADMAP A6b
+    # SQLite path (":memory:" for a throwaway ledger) or a postgres:// DSN
     database: str = "otedama.db"
     # the chain node's RPC address; unset = the in-process mock chain
     chain_rpc_url: str = ""
@@ -186,12 +185,45 @@ class WorkSettings:
 
 
 @dataclasses.dataclass
+class P2PConfig:
+    enabled: bool = False
+    host: str = "0.0.0.0"
+    port: int = 4333
+    max_peers: int = 32
+    bootstrap: list = dataclasses.field(default_factory=list)  # ["host:port"]
+    # -- share chain consensus parameters (p2p/sharechain.py) ----------------
+    # every node of one chain must agree on these, like a chain's genesis
+    # rules: a share's claimed difficulty must be >= share_difficulty and
+    # is verified against its PoW, never trusted
+    share_difficulty: float = 1.0
+    # PPLNS window in SHARES of the best chain (the pool.pplns_window knob
+    # counts stratum submits; this one counts chain shares)
+    pplns_window: int = 8192
+    # deepest rewind a node will perform when a heavier fork appears;
+    # deeper forks are refused and counted (payout-horizon protection)
+    max_reorg_depth: int = 96
+    # shares dated further than this into the future are rejected (one
+    # clock-skewed peer must not pre-date work into everyone's window)
+    max_time_skew: float = 300.0
+    # intended share production cadence, seconds (capacity planning /
+    # future retarget rule; not yet consensus-critical)
+    share_interval: float = 10.0
+    # shares per locator-sync response page (bounded catch-up after
+    # partitions; clamped to the wire MAX_SYNC_PAGE)
+    sync_page: int = 200
+    # the durable chain store's directory (p2p/chainstore.py): carried so
+    # a config that sets it is refused by name (ROADMAP A6c), never
+    # ignored; the store's other chain_* knobs come with it
+    chain_dir: str = ""
+
+
+@dataclasses.dataclass
 class ValidationSettings:
-    """Device-batched share validation (runtime/validate.py) for the pool
-    ledger's batch path ``PoolManager.on_share_batch``. The
-    single-process stratum server books each share through ``on_share``
-    and never reaches it; the batch producers (the sharded front-end and
-    the p2p gossip) come with ROADMAP A14 and A6d."""
+    """Device-batched share validation (runtime/validate.py): the pool
+    ledger's batch path ``PoolManager.on_share_batch`` and the p2p gossip
+    handlers (``SHARE_BATCH`` and locator-sync pages) verify share batches
+    on the card, one dispatch per batch. The single-process stratum
+    server books each share through ``on_share`` and never reaches it."""
 
     enabled: bool = False
     # batches under this many shares are validated on the host
@@ -221,6 +253,7 @@ class AppConfig:
     region: RegionSettings = dataclasses.field(default_factory=RegionSettings)
     validation: ValidationSettings = dataclasses.field(
         default_factory=ValidationSettings)
+    p2p: P2PConfig = dataclasses.field(default_factory=P2PConfig)
     logging: LoggingConfig = dataclasses.field(default_factory=LoggingConfig)
     upstreams: list = dataclasses.field(default_factory=list)  # [UpstreamConfig]
 
@@ -233,6 +266,7 @@ _SECTIONS = {
     "work": WorkSettings,
     "region": RegionSettings,
     "validation": ValidationSettings,
+    "p2p": P2PConfig,
     "logging": LoggingConfig,
 }
 
@@ -289,6 +323,9 @@ def _apply_env(cfg: AppConfig, environ=None) -> None:
                 continue
         elif isinstance(current, str):
             coerced = value
+        elif isinstance(current, list):
+            # p2p.bootstrap: a comma-separated host:port list
+            coerced = [v.strip() for v in value.split(",") if v.strip()]
         setattr(target, field, coerced)
 
 
@@ -328,8 +365,9 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("mining.watchdog_first_deadline must be positive")
     if cfg.mining.max_probes < 0:
         errors.append("mining.max_probes must be >= 0")
-    if not (0 <= cfg.stratum.port <= 65535):
-        errors.append("stratum.port out of range")
+    for name in ("stratum", "p2p"):
+        if not (0 <= getattr(cfg, name).port <= 65535):
+            errors.append(f"{name}.port out of range")
     if cfg.stratum.initial_difficulty <= 0:
         errors.append("stratum.initial_difficulty must be positive")
     if not (0 <= cfg.stratum.workers <= 64):
@@ -346,9 +384,9 @@ def validate_config(cfg: AppConfig) -> list[str]:
     if cfg.stratum.v2_enabled:
         errors.append("stratum.v2_enabled needs Stratum V2, not ported yet "
                       "(ROADMAP A14)")
-    if cfg.pool.database.startswith(("postgres://", "postgresql://")):
-        errors.append("a postgres:// pool.database needs the PostgreSQL "
-                      "backend, not ported yet (ROADMAP A6b)")
+    if cfg.p2p.chain_dir:
+        errors.append("p2p.chain_dir needs the durable share-chain store "
+                      "(p2p/chainstore.py), not ported yet (ROADMAP A6c)")
     if cfg.settlement.enabled:
         errors.append("settlement.enabled needs the settlement engine, not "
                       "ported yet (ROADMAP A13)")
@@ -366,9 +404,10 @@ def validate_config(cfg: AppConfig) -> list[str]:
             "pool.minimum_payout must exceed pool.payout_fee "
             "(otherwise no balance is ever payable)"
         )
-    if cfg.validation.enabled and not cfg.pool.enabled:
-        errors.append("validation.enabled requires pool.enabled (the "
-                      "ledger whose batches it verifies)")
+    if cfg.validation.enabled and not (cfg.pool.enabled or cfg.p2p.enabled):
+        errors.append("validation.enabled requires pool.enabled or "
+                      "p2p.enabled (there is no share intake to validate "
+                      "otherwise)")
     if cfg.validation.min_batch < 1:
         errors.append("validation.min_batch must be >= 1")
     if not (0.0 <= cfg.validation.tripwire_rate <= 1.0):
@@ -378,6 +417,18 @@ def validate_config(cfg: AppConfig) -> list[str]:
     if cfg.validation.x11_chain != "numpy":
         errors.append("validation.x11_chain other than 'numpy' needs x11, "
                       "not ported yet (ROADMAP A9)")
+    if cfg.p2p.share_difficulty <= 0:
+        errors.append("p2p.share_difficulty must be positive")
+    if cfg.p2p.pplns_window <= 0:
+        errors.append("p2p.pplns_window must be positive")
+    if cfg.p2p.max_reorg_depth < 1:
+        errors.append("p2p.max_reorg_depth must be >= 1")
+    if cfg.p2p.max_time_skew <= 0:
+        errors.append("p2p.max_time_skew must be positive")
+    if cfg.p2p.share_interval <= 0:
+        errors.append("p2p.share_interval must be positive")
+    if cfg.p2p.sync_page < 1:
+        errors.append("p2p.sync_page must be >= 1")
     if cfg.work.poll_seconds <= 0:
         errors.append("work.poll_seconds must be positive")
     try:

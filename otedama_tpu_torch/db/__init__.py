@@ -1,5 +1,5 @@
-"""Persistence: SQLite through ``connect_database`` and the repositories
-the pool ledger writes (counterpart of ``otedama_tpu/db``)."""
+"""Persistence: SQLite or PostgreSQL through ``connect_database`` and the
+repositories the pool ledger writes (counterpart of ``otedama_tpu/db``)."""
 
 from otedama_tpu_torch.db.database import Database, connect_database
 from otedama_tpu_torch.db.repos import (

@@ -1,9 +1,11 @@
-"""SQLite persistence manager (counterpart of ``otedama_tpu/db/database.py``,
-SQLite only: the PostgreSQL backend comes with the pool modes, ROADMAP A6).
+"""SQLite persistence manager and the backend-selection factory
+(counterpart of ``otedama_tpu/db/database.py``).
 
 stdlib sqlite3 in WAL mode with a single writer thread affinity, versioned
 migrations applied transactionally (the reference's schema, so a database
 file is shared between the packages), ``:memory:`` supported for tests.
+``connect_database`` routes ``postgres://`` URLs to the PostgreSQL
+backend (db/postgres.py) behind the identical surface.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ log = logging.getLogger("otedama.db")
 def split_statements(script: str) -> list[str]:
     """Split a multi-statement SQL script on ``;`` — but never inside a
     single-quoted literal or a dollar-quoted body ($$...$$ / $tag$...),
-    so a migration carrying either cannot be mis-split. The reference
-    shares it between its sqlite and postgres migrations (sqlite never
+    so a migration carrying either cannot be mis-split. Shared by the
+    sqlite and postgres migrate() paths (sqlite never
     emits dollar quotes; treating them as quotes is harmless for this
     schema's DDL). Returns non-empty statements, quotes left intact."""
     stmts: list[str] = []
@@ -210,7 +212,38 @@ MIGRATIONS: list[tuple[int, str]] = [
 ]
 
 
-class Database:
+class AuditMixin:
+    """Audit-trail read/write over the shared execute/query surface: one
+    definition for both backends (each translates placeholders in its
+    own execute/query)."""
+
+    def audit(self, actor: str, action: str, detail: str = "") -> None:
+        self.execute(
+            "INSERT INTO audit_log (actor, action, detail, created_at) "
+            "VALUES (?,?,?,?)",
+            (actor, action, detail, time.time()),
+        )
+
+    def query_audit(self, actor: str | None = None, action: str | None = None,
+                    limit: int = 100) -> list[dict]:
+        """Filtered audit-trail read, newest first."""
+        sql = "SELECT actor, action, detail, created_at FROM audit_log"
+        conds: list[str] = []
+        params: list = []
+        if actor:
+            conds.append("actor = ?")
+            params.append(actor)
+        if action:
+            conds.append("action = ?")
+            params.append(action)
+        if conds:
+            sql += " WHERE " + " AND ".join(conds)
+        sql += " ORDER BY created_at DESC, id DESC LIMIT ?"
+        params.append(int(limit))
+        return [dict(r) for r in self.query(sql, tuple(params))]
+
+
+class Database(AuditMixin):
     """Thread-safe sqlite3 wrapper with schema migrations."""
 
     def __init__(self, path: str = ":memory:"):
@@ -337,13 +370,6 @@ class Database:
             self._conn.execute(f"ROLLBACK TO SAVEPOINT {name}")
             self._conn.execute(f"RELEASE SAVEPOINT {name}")
 
-    def audit(self, actor: str, action: str, detail: str = "") -> None:
-        self.execute(
-            "INSERT INTO audit_log (actor, action, detail, created_at) "
-            "VALUES (?,?,?,?)",
-            (actor, action, detail, time.time()),
-        )
-
     def snapshot(self) -> dict:
         """Write-path health for operator surfaces (settlement snapshot,
         chaos runs): every executed statement and every failure, injected
@@ -385,24 +411,24 @@ class _Transaction:
         return False
 
 
-def connect_database(url: str) -> Database:
-    """Backend selection by URL: ``sqlite:///path`` and bare paths
-    (including ``:memory:``) get SQLite. ``postgres://`` is refused until
-    the port carries that backend (ROADMAP A6b), and any other
-    ``scheme://`` fails loudly — a typo'd DSN must not silently become a
-    throwaway SQLite file named after the URL."""
+def connect_database(url: str):
+    """Backend selection by URL: ``postgres://`` / ``postgresql://`` DSNs
+    get the PostgreSQL backend (db/postgres.py); ``sqlite:///path`` and
+    bare paths (including ``:memory:``) get SQLite. Any other
+    ``scheme://`` fails loudly — a typo'd or unsupported DSN must not
+    silently become a throwaway SQLite file named after the URL."""
     if "://" in url:
         scheme = url.split("://", 1)[0].lower()
         if scheme in ("postgres", "postgresql"):
-            raise ValueError(
-                f"{url!r}: the port has no PostgreSQL backend yet (it comes "
-                "with ROADMAP A6b); use a sqlite path")
+            from otedama_tpu_torch.db.postgres import PostgresDatabase
+
+            return PostgresDatabase(url)
         if scheme == "sqlite":
             # sqlite:///absolute/path or sqlite://relative/path
             path = url.split("://", 1)[1]
             return Database(path or ":memory:")
         raise ValueError(
             f"unsupported database scheme {scheme!r} in {url!r} "
-            "(supported: a sqlite path, sqlite://)"
+            "(supported: a sqlite path, sqlite://, postgres://)"
         )
     return Database(url)

@@ -16,7 +16,9 @@ host oracle, bring it back. ``switch_algorithm`` swaps the backend set
 at one batch boundary, and retired backends are closed once their
 in-flight calls have drained. Backends that search several extranonce2
 spaces a call (``en2_fanout > 1``: multi-device backends) come with
-ROADMAP A11 and are refused here.
+ROADMAP A11 and are refused here. A device's hashrate is timed by when
+each call's answer was in hand, not when the loop drained it (see
+``_consume``).
 """
 
 from __future__ import annotations
@@ -363,6 +365,9 @@ class MiningEngine:
         if directive is not None and directive.delay:
             directive.sleep_sync()
         result = fn(*args)
+        # when the device's answer was in hand: the hashrate's clock (the
+        # loop may drain the call much later, behind a share's submit)
+        token["done_at"] = time.monotonic()
         sup = self.supervisors.get(name)
         if sup is not None and not token["abandoned"]:
             sup.observe_call(key, time.monotonic() - t0)
@@ -374,8 +379,9 @@ class MiningEngine:
         """Dispatch one device call to the executor through the
         supervision wrapper, tracked in ``_inflight`` so teardown can
         drain the worker thread. Returns ``(future, dispatched_at,
-        watchdog_deadline)`` — the deadline is armed at DISPATCH time so
-        pipelined calls age while queued behind their predecessors."""
+        watchdog_deadline, token)`` — the deadline is armed at DISPATCH
+        time so pipelined calls age while queued behind their
+        predecessors; the token carries the call's ``done_at``."""
         token = {"abandoned": False}
         fut = loop.run_in_executor(
             self._device_executor, self._call_device_sync,
@@ -390,7 +396,7 @@ class MiningEngine:
         fut.add_done_callback(self._silence)
         sup = self.supervisors.get(name)
         deadline = sup.deadline(key) if sup is not None else float("inf")
-        return fut, time.monotonic(), deadline
+        return fut, time.monotonic(), deadline, token
 
     def _inflight_discard(self, fut) -> None:
         self._inflight.pop(fut, None)
@@ -811,7 +817,7 @@ class MiningEngine:
             deadline = cfg.probe_timeout
             if sup.probes_failed == 0 and not sup.has_samples(probe_key):
                 deadline = max(deadline, cfg.watchdog_first_deadline)
-            fut, t0, _ = self._run_device(
+            fut, t0, _, _ = self._run_device(
                 loop, name, probe_key, self._probe_search, backend,
             )
             error = None
@@ -881,10 +887,15 @@ class MiningEngine:
             # issued before the group's one read-back; two groups in
             # flight. Other backends keep `depth` single searches in
             # flight. Tuples are (en2s, future, dispatched_at,
-            # watchdog_deadline), drained in dispatch order.
+            # watchdog_deadline, token), drained in dispatch order.
             grouped = hasattr(backend, "search_group")
             pend_cap = min(2, depth) if grouped else depth
             pending: list[tuple] = []
+            # the hashrate's clock runs from call to call for the whole
+            # searcher: the reference restarts it at each extranonce2
+            # roll, after the host hop below, so a call that finished
+            # during a slow hop sampled its hashes over milliseconds
+            t_last = time.monotonic()
             try:
                 while (not self._stop.is_set() and serial == self._job_serial
                        and gen == self._layout_gen):
@@ -894,7 +905,6 @@ class MiningEngine:
                     jcs = await loop.run_in_executor(
                         None, _job_constants_batch, job, en2s
                     )
-                    t_last = time.monotonic()
                     batches = iter(NonceRange(0, 1 << 32).batches(batch_size))
                     unit_size = depth if grouped else 1
                     for unit in iter(
@@ -916,24 +926,25 @@ class MiningEngine:
                                 continue
                         if grouped:
                             # the watchdog key: the group's lane count
-                            fut, t0, dl = self._run_device(
+                            fut, t0, dl, token = self._run_device(
                                 loop, name, sum(c for _, c in unit),
                                 backend.search_group, jcs[0], unit,
                             )
                         else:
                             base, count = unit[0]
-                            fut, t0, dl = self._run_device(
+                            fut, t0, dl, token = self._run_device(
                                 loop, name, count,
                                 backend.search, jcs[0], base, count,
                             )
-                        pending.append((en2s, fut, t0, dl))
+                        pending.append((en2s, fut, t0, dl, token))
                         if len(pending) >= pend_cap:
-                            p_en2s, p_fut, p_t0, p_dl = pending.pop(0)
+                            p_en2s, p_fut, p_t0, p_dl, p_token = pending.pop(0)
                             results = await self._await_call(
                                 name, p_fut, p_t0, p_dl
                             )
                             t_last = await self._consume(
-                                job, p_en2s, results, dstats, t_last
+                                job, p_en2s, results, dstats, t_last,
+                                p_token["done_at"],
                             )
                     else:
                         # nonce spaces exhausted: stride to this device's
@@ -948,7 +959,8 @@ class MiningEngine:
                 # a call that failed is logged and skipped, and the calls
                 # behind it are still consumed; a hung one detaches the
                 # searcher
-                for i, (p_en2s, p_fut, p_t0, p_dl) in enumerate(pending):
+                for i, (p_en2s, p_fut, p_t0, p_dl, p_token) in enumerate(
+                        pending):
                     try:
                         results = await self._await_call(
                             name, p_fut, p_t0, p_dl
@@ -959,7 +971,8 @@ class MiningEngine:
                     except Exception:
                         log.exception("in-flight search failed during drain")
                         continue
-                    await self._consume(job, p_en2s, results, dstats, None)
+                    await self._consume(job, p_en2s, results, dstats, None,
+                                        p_token["done_at"])
             except Exception:
                 # hung OR crashed: nothing will await what this pipeline
                 # still has in flight — count it abandoned (the executor
@@ -972,22 +985,29 @@ class MiningEngine:
 
     async def _consume(
         self, job: Job, en2s: list[bytes], results, dstats,
-        t_last: float | None,
+        t_last: float | None, done_at: float,
     ) -> float:
         """Account one drained device call and emit its shares.
 
         ``results`` is one SearchResult (plain), or a list of same-en2
-        slices (grouped backends). Returns the new t_last.
+        slices (grouped backends); ``done_at`` is when its answer was in
+        hand. The hashrate sample is the call's hashes over the time
+        since ``t_last``, the previous call's ``done_at`` (the searcher's
+        start for its first call): the reference times it from the drain,
+        restarted at each extranonce2 roll, so a call drained just after
+        a slow host hop sampled a rate of hundreds of GH/s, and the
+        failure detector restarted a healthy engine below a quarter of
+        that peak. Returns the new t_last.
         """
         if not isinstance(results, list):
             results = [results]
-        now = time.monotonic()
         hashes = sum(r.hashes for r in results)
-        dstats.record_batch(hashes, 0.0 if t_last is None else now - t_last)
+        dstats.record_batch(hashes,
+                            0.0 if t_last is None else done_at - t_last)
         self.stats.hashes += hashes
         for result in results:
             await self._emit_shares(job, en2s[0], result)
-        return now
+        return done_at
 
     async def _emit_shares(self, job: Job, en2: bytes, result: SearchResult) -> None:
         for w in result.winners:

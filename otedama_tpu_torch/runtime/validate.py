@@ -46,12 +46,14 @@ and ``None`` means host only (the reference's ``device=False``); nothing
 pads batches to compiled shapes (there is no compile cache to protect);
 the reference's ``rolled`` and ``x11_chain`` knobs are gone; a device
 error, an overflow and a tripwire mismatch take the ways above, where the
-reference host-validates all three.
+reference host-validates all three; device dispatches run on threads of
+their own (``dispatch_executor``), not on the loop's default executor.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import dataclasses
 import logging
@@ -84,6 +86,16 @@ VALIDATE_MIN_BATCH = 32
 # latency histogram class is unit-agnostic: bounds are just numbers)
 _BATCH_BOUNDS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
                  512.0, 1024.0, 4096.0)
+
+# the threads that run device dispatches and wait for their read-backs:
+# on the card a dispatch waits until the verify kernel has run, and the
+# verify kernel does not start beside a running search kernel B1 (B1's
+# persistent blocks hold every SM for its whole launch, ~289 ms on an
+# H100), so a dispatch on the loop's default executor held a thread that
+# long and starved the engine's own hops there (chip_smoke.py phase 26)
+def dispatch_executor() -> concurrent.futures.ThreadPoolExecutor:
+    return pow_host.named_executor("validate-dispatch")
+
 
 # algorithms with a device verify tier. Deliberately NARROW: "sha256"
 # (single hash) has no device twin and must not fall into the sha256d
@@ -354,7 +366,8 @@ class ValidationBackend:
                 await asyncio.sleep(d.delay)
             corrupt = d.corrupt
         buf = await loop.run_in_executor(
-            None, self._device_buffer, algorithm, checks, self.k)
+            dispatch_executor(), self._device_buffer, algorithm, checks,
+            self.k)
         offs, _, n_fails, min_h0 = sc.unpack_winner_buffer(buf, self.k)
         if n_fails > self.k:
             # heavily Byzantine batch: the compact table cannot name every
@@ -362,7 +375,8 @@ class ValidationBackend:
             with self._lock:
                 self.stats["overflows"] += 1
             buf = await loop.run_in_executor(
-                None, self._device_buffer, algorithm, checks, n_fails)
+                dispatch_executor(), self._device_buffer, algorithm, checks,
+                n_fails)
             offs, _, again, min_h0 = sc.unpack_winner_buffer(buf, n_fails)
             if again != n_fails:
                 raise RuntimeError(
@@ -465,7 +479,7 @@ class ValidationBackend:
         """Pending work on the shared validation executor — the
         host-path backpressure signal (a deep queue means host
         validation is the wall again)."""
-        pool = pow_host._VALIDATION_POOL
+        pool = pow_host._POOLS.get(pow_host.VALIDATION_POOL)
         if pool is None:
             return 0
         try:

@@ -114,6 +114,16 @@ REGISTRY: dict[str, FaultPoint] = _reg(
                "session id", SEND_SYNC),
     FaultPoint("region.handoff", "stratum/server.py _try_resume",
                "session id", POINT),
+    FaultPoint("p2p.peer.send", "p2p/node.py writer",
+               "peer id prefix (12 hex)", SEND_SYNC),
+    FaultPoint("p2p.peer.recv", "p2p/node.py reader",
+               "peer id prefix (12 hex)", POINT),
+    FaultPoint("p2p.mem.send", "p2p/memnet.py MemoryWriter",
+               "remote id prefix (8 hex)", SEND_SYNC),
+    FaultPoint("p2p.share.verify", "p2p/pool.py _on_share",
+               "share id prefix (12 hex)", STEP),
+    FaultPoint("p2p.sync", "p2p/pool.py locator sync",
+               "peer id prefix (12 hex)", STEP),
     FaultPoint("db.execute", "db/database.py execute/executemany",
                "", POINT),
     FaultPoint("ledger.flush",

@@ -11,6 +11,7 @@ to it.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import hashlib
 import threading
@@ -23,32 +24,39 @@ SLOW_HOST_ALGOS = frozenset(
     {"scrypt", "litecoin", "x11", "dash", "ethash", "etchash"}
 )
 
+# lazily built thread pools, one per name, each shut down at exit
+_POOLS: dict[str, concurrent.futures.ThreadPoolExecutor] = {}
+_POOLS_LOCK = threading.Lock()
+
+
+def named_executor(name: str) -> concurrent.futures.ThreadPoolExecutor:
+    """The process's one pool of four threads called ``name``, built on
+    first use."""
+    pool = _POOLS.get(name)
+    if pool is None:
+        with _POOLS_LOCK:
+            pool = _POOLS.get(name)
+            if pool is None:
+                pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix=name)
+                # registered AFTER concurrent.futures' own exit handler,
+                # so this runs FIRST (atexit is LIFO): cancel queued work
+                # so interpreter exit waits for at most the in-flight calls
+                atexit.register(pool.shutdown, wait=False,
+                                cancel_futures=True)
+                _POOLS[name] = pool
+    return pool
+
+
 # dedicated pool for share validation: the event loop's DEFAULT executor
-# also carries every engine backend.search dispatch and the device
-# validation dispatches, so host validation gets its own small pool
-_VALIDATION_POOL: concurrent.futures.ThreadPoolExecutor | None = None
-_VALIDATION_POOL_LOCK = threading.Lock()
+# also carries every engine backend.search dispatch, and the device
+# validation dispatches have a pool of their own, so host validation
+# gets its own small pool
+VALIDATION_POOL = "share-validate"
 
 
 def validation_executor() -> concurrent.futures.ThreadPoolExecutor:
-    global _VALIDATION_POOL
-    if _VALIDATION_POOL is None:
-        with _VALIDATION_POOL_LOCK:
-            if _VALIDATION_POOL is None:
-                _VALIDATION_POOL = concurrent.futures.ThreadPoolExecutor(
-                    max_workers=4, thread_name_prefix="share-validate"
-                )
-                # registered AFTER concurrent.futures' own exit handler,
-                # so this runs FIRST (atexit is LIFO): cancel queued
-                # validations so interpreter exit waits for at most the
-                # in-flight digests
-                import atexit
-
-                atexit.register(
-                    _VALIDATION_POOL.shutdown, wait=False,
-                    cancel_futures=True,
-                )
-    return _VALIDATION_POOL
+    return named_executor(VALIDATION_POOL)
 
 
 def sha256d(data: bytes) -> bytes:

@@ -114,3 +114,86 @@ async def test_a_failed_call_in_the_drain_keeps_the_winners_behind_it():
     assert (port.supervisors["stub"].searcher_restarts
             == ref.supervisors["stub"].searcher_restarts)
     assert port.stats.hashes >= 6 * BATCH
+
+
+
+class SerialStub:
+    """One device: calls run one at a time, each taking ``CALL_S``, with
+    no winner."""
+
+    name = "stub"
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.lock = threading.Lock()
+        self.calls = 0
+
+    def search(self, jc, base, count):
+        with self.lock:
+            self.calls += 1
+            time.sleep(CALL_S)
+        return self.mod.SearchResult([], count, 0xFFFFFFFF)
+
+
+CALL_S = 0.05
+ROLL_BATCH = 1 << 31        # two calls an extranonce2 space
+
+
+async def _peak_rate(engine, stub, job_cls, engine_mod, stats_cls,
+                     monkeypatch) -> float:
+    """The highest hashrate the engine's device EMA took while each
+    extranonce2 roll's host hop took 0.2 s (a busy default executor)."""
+    peak = [0.0]
+    record = stats_cls.record_batch
+    hop = engine_mod._job_constants_batch
+
+    def traced(self, hashes, seconds, alpha=0.3):
+        record(self, hashes, seconds, alpha)
+        peak[0] = max(peak[0], self.hashrate)
+
+    def slow_hop(*args):
+        time.sleep(0.2)
+        return hop(*args)
+
+    monkeypatch.setattr(stats_cls, "record_batch", traced)
+    monkeypatch.setattr(engine_mod, "_job_constants_batch", slow_hop)
+    await engine.start()
+    try:
+        engine.set_job(job_cls(**_job_fields("first", 1_700_000_000)))
+        deadline = time.monotonic() + 10.0
+        while stub.calls < 8:
+            assert time.monotonic() < deadline, f"{stub.calls} calls"
+            await asyncio.sleep(0.005)
+    finally:
+        await engine.stop()
+    return peak[0]
+
+
+@pytest.mark.asyncio
+async def test_a_slow_roll_does_not_spike_the_hashrate(monkeypatch):
+    """ROADMAP Queue C 31: the device's hashrate is timed from one call's
+    answer to the next. The reference restarts its clock at each
+    extranonce2 roll, after the roll's host hop, so a call that finished
+    during a slow hop samples its hashes over a few milliseconds: a rate
+    many times the device's, which the failure detector then takes as
+    the peak to hold the engine to."""
+    from otedama_tpu.engine import engine as ref_engine_mod
+    from otedama_tpu.engine.types import DeviceStats as RefDeviceStats
+    from otedama_tpu_torch.engine import engine as engine_mod
+    from otedama_tpu_torch.engine.types import DeviceStats
+
+    nominal = ROLL_BATCH / CALL_S
+    peaks = []
+    for mod, emod, engine_cls, config_cls, job_cls, stats_cls in (
+            (search, engine_mod, MiningEngine, EngineConfig, Job,
+             DeviceStats),
+            (ref_search, ref_engine_mod, RefMiningEngine, RefEngineConfig,
+             RefJob, RefDeviceStats)):
+        stub = SerialStub(mod)
+        engine = engine_cls({"stub": stub}, config=config_cls(
+            batch_size=ROLL_BATCH, auto_batch=False, pipeline_depth=2))
+        peaks.append(await _peak_rate(engine, stub, job_cls, emod,
+                                      stats_cls, monkeypatch))
+    port, ref = peaks
+    assert 0 < port <= 1.2 * nominal
+    assert ref > 5 * nominal

@@ -208,7 +208,7 @@ def test_cli_pool_mine_with_auto_raises_without_a_card(monkeypatch):
     ("stratum.v2_enabled", True, "A14"),
     ("stratum.fleet_listen", "127.0.0.1:0", "A14"),
     ("stratum.fleet_ledger", "127.0.0.1:9", "A14"),
-    ("pool.database", "postgres://u:p@localhost/pool", "A6b"),
+    ("p2p.chain_dir", "/var/lib/otedama/chain", "A6c"),
     ("settlement.enabled", True, "A13"),
     ("region.enabled", True, "A13"),
 ])

@@ -190,7 +190,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "otedama_tpu_torch.engine.vardiff",
             "otedama_tpu_torch.security.validation",
             "otedama_tpu_torch.security.ratelimit",
-            "otedama_tpu_torch.security.ddos"} <= set(modules)
+            "otedama_tpu_torch.security.ddos",
+            "otedama_tpu_torch.db.pgwire",
+            "otedama_tpu_torch.db.postgres",
+            "otedama_tpu_torch.p2p.messages",
+            "otedama_tpu_torch.p2p.node",
+            "otedama_tpu_torch.p2p.memnet",
+            "otedama_tpu_torch.p2p.sharechain",
+            "otedama_tpu_torch.p2p.pool"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

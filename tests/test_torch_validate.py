@@ -21,8 +21,10 @@ Integer work throughout: every comparison is exact (tolerance 0).
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import hashlib
 import struct
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,7 @@ from otedama_tpu_torch.kernels import sha256_torch as st
 from otedama_tpu_torch.kernels import target as tgt
 from otedama_tpu_torch.pool.blockchain import MockChainClient
 from otedama_tpu_torch.pool.manager import PoolConfig, PoolManager
+from otedama_tpu_torch.p2p.sharechain import ShareChain
 from otedama_tpu_torch.pool.payouts import PayoutConfig, PayoutScheme
 from otedama_tpu_torch.runtime import validate
 from otedama_tpu_torch.stratum.server import AcceptedShare
@@ -333,13 +336,38 @@ def test_validation_backend_default_device_needs_a_card(monkeypatch):
     assert not host_only.device_ok()
 
 
+def test_dispatches_do_not_wait_on_the_loops_default_executor(sha_batch):
+    """ROADMAP Queue C 30: a device dispatch waits for its read-back on
+    threads of its own. With the loop's default executor held by a long
+    call (on the card: the engine's hops, starved while dispatches waited
+    behind the search kernel), a batch on the device path still settles."""
+    headers, targets = sha_batch
+    backend = validate.ValidationBackend(min_batch=1, tripwire_rate=0.0,
+                                         device="cpu")
+    checks = [validate.ShareCheck(h, t) for h, t in zip(headers, targets)]
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        loop.set_default_executor(concurrent.futures.ThreadPoolExecutor(1))
+        gate = threading.Event()
+        held = loop.run_in_executor(None, gate.wait, 30.0)
+        try:
+            return await asyncio.wait_for(backend.verify_batch(checks), 20.0)
+        finally:
+            gate.set()
+            await held
+
+    assert asyncio.run(run()) == [i % 3 != 1 for i in range(len(headers))]
+    assert backend.snapshot()["device_batches"] == 1
+
+
 def test_port_refuses_what_it_does_not_carry_yet():
     with pytest.raises(ValueError, match="A9"):
         pow_host.pow_digest(bytes(80), "x11")
     with pytest.raises(ValueError, match="A10"):
         pow_host.pow_digest(bytes(80), "ethash")
-    with pytest.raises(ValueError, match="A6"):
-        connect_database("postgres://pool@localhost/otedama")
+    with pytest.raises(ValueError, match="A6c"):
+        ShareChain(store=object())
 
 
 # -- the pool ledger ----------------------------------------------------------

@@ -172,6 +172,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import dataclasses
+import gc
 import hashlib
 import json
 import logging
@@ -200,6 +201,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 # pipe (IMAD and its IADD/MOV/SHL forms: 64 more), so no mix of integer
 # instructions issues faster. The bounds below take this ceiling.
 INT32_LANES_PER_SM = 128
+# phase 17 profiles a B2 call again when torch.profiler saw fewer of its
+# kernels than were launched (it loses records on some hosts)
+PROFILE_ATTEMPTS = 6
 SCRYPT_NBITS = 0x1F00FFFF     # about one scrypt share per 2^16 hashes
 SCRYPT_WINDOW_S = 20.0        # the scrypt main path's fixed window
 
@@ -1219,20 +1223,44 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
         f"on the card" for name, (a, b) in floor.items()) + f"; {card}",
         flush=True)
 
-    def device_kernels(fn, calls=10):
+    marks_seen: list = []
+
+    def device_kernels(fn, calls=10, lead=32, trail=2):
         """the device kernels and copies that ``calls`` calls of ``fn``
         ran, by name, from torch.profiler (None when it saw no device
-        activity)"""
+        activity). The calls sit between ``lead`` empty kernels before
+        and ``trail`` after: on some hosts the profiler loses the first
+        records of a trace (up to 11 seen), and those are then
+        markers'. The markers are taken out by name, unless there are
+        more of them than were launched as markers. ``marks_seen`` gets
+        the markers seen before and after the calls"""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                sc.empty_launch(stream)
+            torch.cuda.synchronize(dev)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize(dev)
+            for _ in range(trail):
+                sc.empty_launch(stream)
+            torch.cuda.synchronize(dev)
         names: dict[str, int] = {}
+        starts: dict[str, list] = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 names[e.name] = names.get(e.name, 0) + 1
+                starts.setdefault(e.name, []).append(e.time_range.start)
+        marked = [n for n in names if "empty_kernel" in n]
+        rest = [t for n in names if n not in marked for t in starts[n]]
+        at = [t for n in marked for t in starts[n]]
+        first = min(rest, default=float("inf"))
+        marks_seen[:] = [sum(t < first for t in at),
+                         sum(t >= first for t in at)]
+        for name in marked:
+            if names[name] <= lead + trail:
+                del names[name]
         return names or None
 
     b2 = {}
@@ -1253,7 +1281,7 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
         torch.cuda.synchronize(dev)
         before = sc.verify_launches.value
         dropped = ""
-        for attempt in range(2):
+        for attempt in range(PROFILE_ATTEMPTS):
             try:
                 ran = device_kernels(call)
             except Exception as exc:        # the profiler is optional here
@@ -1263,10 +1291,13 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
             kernels = {n: c / 10 for n, c in ran.items()}
             only_b2 = (len(kernels) == 1
                        and "verify_kernel" in next(iter(kernels)))
-            if only_b2 and next(iter(kernels.values())) < 1 and not attempt:
+            if (only_b2 and next(iter(kernels.values())) < 1
+                    and attempt < PROFILE_ATTEMPTS - 1):
                 # the profiler lost kernel records (it saw fewer kernels
-                # than the wrapper launched): measure once more
-                dropped = f" (the first profile dropped records: {kernels})"
+                # than the wrapper launched): measure again
+                dropped += (f" (profile {attempt + 1} saw "
+                            f"{next(iter(kernels.values())):.1f} a call, "
+                            f"markers before and after {marks_seen})")
                 continue
             break
         launches = (sc.verify_launches.value - before) / (10 * (attempt + 1))
@@ -1274,7 +1305,9 @@ def validation_phases(dev, card: str, int_ops_per_s: float):
             check(only_b2 and next(iter(kernels.values())) == 1,
                   f"B2 call ran {kernels} on the card, not one verify kernel")
             ran = (f"one verify kernel and nothing else a call "
-                   f"({next(iter(kernels))}){dropped}")
+                   f"({next(iter(kernels))}){dropped}; empty-kernel markers"
+                   f" seen before and after the calls {marks_seen} of "
+                   f"[32, 2]")
         elif ran is None:
             ran = "not measured (torch.profiler saw no device activity)"
         t0 = time.monotonic()
@@ -2032,6 +2065,7 @@ FLEET_DIFFICULTY = 1e-7
 POOL_WORKER = "card.pool"
 VARDIFF_START = 1 / 64        # ~32 winners a 2^31-nonce launch: over k = 16
 FAILOVER_DIFFICULTY = 1 / 16  # ~8 winners a 2^31-nonce launch
+WATCH_SPAN_S = 2.0  # phase 24 watches the engine this long each side of the stop
 SCRYPT_POOL_DIFFICULTY = 2.0 ** -16   # one scrypt share per 2^16 hashes
 SCRYPT_POOL_WINDOW_S = 10.0
 
@@ -2630,8 +2664,14 @@ def failover_phase(dev, card: str) -> int:
         try:
             await app.start()
             await engine_running(app)
+            # the watch sees the engine for 2 s before the stop and 2 s
+            # after it: the window that the check below reads. Started
+            # after the primary's third accept, it would see nothing
+            # before the stop whenever app.start() outlasted one call
             watch = Timeline(app.engine)
-            await until(lambda: len(accepted["primary"]) >= 3,
+            t_watch = time.monotonic()
+            await until(lambda: len(accepted["primary"]) >= 3
+                        and time.monotonic() >= t_watch + WATCH_SPAN_S,
                         MAIN_PATH_BOUND_S, "3 accepts at the primary")
             old = app.client
             en1 = old.extranonce1
@@ -2648,7 +2688,8 @@ def failover_phase(dev, card: str) -> int:
             t_conn = time.monotonic()
             t_first = await until(lambda: accepted["backup"], 60.0,
                                   "an accept at the backup")
-            await until(lambda: len(accepted["backup"]) >= 3, 60.0,
+            await until(lambda: len(accepted["backup"]) >= 3
+                        and time.monotonic() >= t_stop + WATCH_SPAN_S, 60.0,
                         "3 accepts at the backup")
             watch.stop()
             out.update(
@@ -2682,11 +2723,14 @@ def failover_phase(dev, card: str) -> int:
           f"{out['restarts']}")
     # the engine never stopped: its hash count kept moving, drained call
     # after drained call, from 2 s before the primary's stop to the end
-    around = [t for t, _ in out["moves"] if t >= out["t_stop"] - 2.0]
+    around = [t for t, _ in out["moves"]
+              if t >= out["t_stop"] - WATCH_SPAN_S]
     gaps = [b - a for a, b in zip(around, around[1:])]
-    check(len(around) >= 3 and max(gaps) < 2.0,
+    after = sum(t > out["t_stop"] for t in around)
+    check(len(around) >= 3 and after >= 1 and max(gaps) < 2.0,
           f"the engine's hash count stalled across the failover: "
-          f"{len(around)} moves, gaps {[round(g, 3) for g in gaps][:12]}")
+          f"{len(around)} moves ({after} after the stop), gaps "
+          f"{[round(g, 3) for g in gaps][:12]}")
     check_accepted([s for _, s in accepted["primary"] + accepted["backup"]])
     print(f"   primary stopped; {out['checks']} check_all rounds to select the"
           f" backup ({(out['t_sel'] - out['t_stop']) * 1e3:.1f} ms), "
@@ -2694,8 +2738,8 @@ def failover_phase(dev, card: str) -> int:
           f"{(out['t_conn'] - out['t_sel']) * 1e3:.1f} ms (extranonce1 "
           f"{out['en1'].hex()} kept); first accept at the backup "
           f"{(out['first'] - out['t_stop']) * 1e3:.1f} ms after the stop; the"
-          f" engine's hash count moved {len(around)} times from 2 s before "
-          f"the stop to the end, the longest gap {max(gaps) * 1e3:.1f} ms, no"
+          f" engine's hash count moved {len(around)} times ({after} after the "
+          f"stop) from 2 s before the stop to the end, the longest gap {max(gaps) * 1e3:.1f} ms, no"
           f" restart; accepts primary {len(accepted['primary'])}, backup "
           f"{len(accepted['backup'])}, every one re-hashed with hashlib; B1 "
           f"launches {launches}; {card}", flush=True)
@@ -2861,11 +2905,13 @@ def load_pg_emulator():
 
 
 def p2p_app(dev, algorithm: str, difficulty: float, dsn: str, chain,
-            bootstrap: list, mine: bool):
+            bootstrap: list, mine: bool, chain_dir: str = ""):
     """An ``Application`` configured as ``cli p2p [--mine]`` sets it (p2p
     and pool on), with validation at its defaults on the card, the books
     in PostgreSQL at ``dsn``, phase 22's stratum and mock-chain settings,
-    and the node bootstrapping to ``bootstrap`` on loopback."""
+    and the node bootstrapping to ``bootstrap`` on loopback. With
+    ``chain_dir`` the chain is durable there (the store's other knobs at
+    their defaults) and the API is on at a loopback port of its own."""
     from otedama_tpu_torch.app import Application
     from otedama_tpu_torch.config.schema import AppConfig, validate_config
 
@@ -2888,6 +2934,11 @@ def p2p_app(dev, algorithm: str, difficulty: float, dsn: str, chain,
     cfg.p2p.port = 0
     cfg.p2p.share_difficulty = difficulty
     cfg.p2p.bootstrap = [f"127.0.0.1:{port}" for port in bootstrap]
+    if chain_dir:
+        cfg.p2p.chain_dir = chain_dir
+        cfg.api.enabled = True
+        cfg.api.host = "127.0.0.1"
+        cfg.api.port = 0
     errors = validate_config(cfg)
     check(not errors, f"p2p config refused: {errors}")
     return Application(cfg, chain=chain)
@@ -2929,6 +2980,42 @@ class VerifyLog:
 def sha256d_id(header: bytes) -> bytes:
     """A share's id: sha256d of its header, whatever its algorithm."""
     return hashlib.sha256(hashlib.sha256(header).digest()).digest()
+
+
+class GcWatch:
+    """The cyclic garbage collector's passes while a ``with`` block runs
+    (``gc.callbacks``): each pass's generation and pause. A full pass
+    stops every thread of the process for as long as it walks the heap."""
+
+    def __init__(self):
+        self.passes: list[tuple[int, float]] = []
+        self._t0 = 0.0
+
+    def _callback(self, stage, info):
+        if stage == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.passes.append((info["generation"],
+                                time.perf_counter() - self._t0))
+
+    def __enter__(self) -> "GcWatch":
+        self.tracked = len(gc.get_objects())
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._callback)
+
+    def summary(self) -> str:
+        rows = []
+        for g in (0, 1, 2):
+            pauses = [p for gen, p in self.passes if gen == g]
+            if pauses:
+                rows.append(f"gen {g}: {len(pauses)} passes, "
+                            f"{sum(pauses) * 1e3:.1f} ms in all, max "
+                            f"{max(pauses) * 1e3:.1f} ms")
+        return (f"the garbage collector over {self.tracked} tracked objects: "
+                + ("; ".join(rows) or "no pass"))
 
 
 class LoopLag:
@@ -3077,37 +3164,53 @@ async def _overlay_serve(conn, n, length, difficulty, algorithm):
                 return
 
 
-class Overlay:
-    """The phase's end of ``overlay_process``."""
+class Child:
+    """A process of the phase's own (multiprocessing spawn), spoken to
+    over a pipe: each command gets one named reply."""
 
-    def __init__(self, n: int, length: int, difficulty: float,
-                 algorithm: str = "sha256d"):
+    def __init__(self, name: str, target, *args):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
+        self.name = name
         self.conn, child = ctx.Pipe()
-        self.proc = ctx.Process(target=overlay_process, daemon=True,
-                                args=(child, n, length, difficulty, algorithm))
+        self.proc = ctx.Process(target=target, daemon=True,
+                                args=(child, *args))
         self.proc.start()
-        self.info = self._reply("ready", 300.0)
 
     def _reply(self, want: str, timeout: float = 60.0):
-        check(self.conn.poll(timeout), f"the overlay process gave no {want}")
+        check(self.conn.poll(timeout), f"the {self.name} gave no {want}")
         kind, value = self.conn.recv()
-        check(kind == want, f"the overlay process: {kind}: {value}")
+        check(kind == want, f"the {self.name}: {kind}: {value}")
         return value
 
-    async def call(self, cmd: str, arg=None, timeout: float = 60.0):
+    async def ask(self, cmd: str, arg, want: str, timeout: float = 60.0):
         self.conn.send((cmd, arg))
-        reply = {"flood": "flooded", "state": "state", "stop": "stopped"}[cmd]
+        return await self.reply(want, timeout)
+
+    async def reply(self, want: str, timeout: float = 60.0):
         return await asyncio.get_running_loop().run_in_executor(
-            None, self._reply, reply, timeout)
+            None, self._reply, want, timeout)
 
     def close(self) -> None:
         self.proc.join(30.0)
         if self.proc.is_alive():
             self.proc.kill()
             self.proc.join()
+
+
+class Overlay(Child):
+    """The phase's end of ``overlay_process``."""
+
+    def __init__(self, n: int, length: int, difficulty: float,
+                 algorithm: str = "sha256d"):
+        super().__init__("overlay process", overlay_process, n, length,
+                         difficulty, algorithm)
+        self.info = self._reply("ready", 300.0)
+
+    async def call(self, cmd: str, arg=None, timeout: float = 60.0):
+        reply = {"flood": "flooded", "state": "state", "stop": "stopped"}[cmd]
+        return await self.ask(cmd, arg, reply, timeout)
 
 
 def b2_beside(dev, words, limbs) -> str:
@@ -3162,6 +3265,48 @@ def b2_beside(dev, words, limbs) -> str:
     return "; ".join(rows)
 
 
+def b1_now(dev) -> float:
+    """B1's rate (H/s) on the card as it is now: as phase 5 times it,
+    the median of 3 rounds of 2 back-to-back 2^31-nonce launches after a
+    warm-up launch, on a stream of its own (7 launches, outside every
+    counted window: callers take them off their counts)."""
+    import torch
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+
+    jw = sc_k.pack_job_words([0] * 8, [0] * 3, 0, [0] * 8)
+    stream = torch.cuda.Stream(dev)
+    out = torch.empty(sc_k.winner_buffer_words(sc_k.K_WINNERS),
+                      dtype=torch.int32, device=dev)
+    ms, _ = median_ms(lambda: sc_k.sha256d_search(
+        jw, batch=MAIN_BATCH, device=dev, stream=stream, out=out), stream, 2)
+    return MAIN_BATCH / ms * 1e3
+
+
+def b2_against_plain(dev, pairs) -> int:
+    """B2 and its plain version on one batch of (header, target) pairs as a
+    path gave them (launches outside every counted window): the max
+    absolute difference of their ``uint32[2k+3]`` buffers, which must be
+    0. Returns the number of failures in the batch."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.kernels import target as tgt
+
+    k = sc_k.K_WINNERS
+    words = torch.from_numpy(st.headers_to_words(
+        [h for h, _ in pairs]).view(np.int32)).to(dev)
+    limbs = torch.from_numpy(np.stack([tgt.target_to_limbs(t)
+                                       for _, t in pairs]).view(np.int32)).to(dev)
+    a = sc_k.sha256d_verify(words, limbs, len(pairs), k=k).cpu().numpy()
+    b = st.sha256d_verify_step(words, limbs, len(pairs) - 1, k=k).cpu().numpy()
+    err = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+    check(err == 0, f"B2 != plain on a batch of {len(pairs)}")
+    return int(b.view(np.uint32)[2 * k])
+
+
 def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
     """Phase 26: ``cli p2p --mine`` on the card with PostgreSQL books.
     Returns B1's and B2's launches and B2's max_abs_err at the path's
@@ -3172,6 +3317,7 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
     from otedama_tpu_torch.kernels import sha256_cuda as sc_k
     from otedama_tpu_torch.kernels import sha256_torch as st
     from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels.card import Sampler
     from otedama_tpu_torch.pool.blockchain import MockChainClient
 
     phase(f"26 `cli p2p --mine` on the card: catch-up of {P2P_CHAIN} shares "
@@ -3213,13 +3359,15 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
             # gossip: a batch of 500 a second from seed 0, relayed by the
             # others; one share in 256 forged
             forged: set = set()
-            t_g0 = time.monotonic()
-            for k in range(int(P2P_GOSSIP_S)):
-                await asyncio.sleep(max(0.0, t_g0 + k - time.monotonic()))
-                forged |= set(await overlay.call(
-                    "flood", (P2P_BATCH, P2P_FORGE_EVERY)))
-            t_g1 = t_g0 + P2P_GOSSIP_S
-            await asyncio.sleep(max(0.0, t_g1 - time.monotonic()))
+            with Sampler(period=1.0) as sampled, GcWatch() as collected:
+                t_g0 = time.monotonic()
+                for k in range(int(P2P_GOSSIP_S)):
+                    await asyncio.sleep(max(0.0, t_g0 + k - time.monotonic()))
+                    forged |= set(await overlay.call(
+                        "flood", (P2P_BATCH, P2P_FORGE_EVERY)))
+                t_g1 = t_g0 + P2P_GOSSIP_S
+                await asyncio.sleep(max(0.0, t_g1 - time.monotonic()))
+            out["card"], out["gc"] = sampled.summary(), collected.summary()
             height = P2P_CHAIN + int(P2P_GOSSIP_S) * P2P_BATCH - len(forged)
             await until(lambda: app.p2p.chain.height == height, 60.0,
                         "the app at the gossip's height")
@@ -3231,6 +3379,11 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
             await gate.cut()
             async with app._restart_lock:
                 await app.engine.stop()
+                # the engine is stopped: B1's launches here are b1_now's
+                before = sc_k.launches.value
+                out["b1_now"] = await asyncio.get_running_loop(
+                ).run_in_executor(None, b1_now, dev)
+                timing_launches = sc_k.launches.value - before
                 rows = app.db.query("SELECT worker, COUNT(*) AS c "
                                     "FROM shares GROUP BY worker")
                 out["rows"] = {r["worker"]: r["c"] for r in rows}
@@ -3267,7 +3420,8 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
                 weights=app.p2p.weights(), full=app.p2p.chain.weights_full(),
                 app_linked=any(f in app.p2p.chain for f in forged),
                 p2p=app.p2p.snapshot(), stats=dict(app.validator.stats),
-                b2=sc_k.verify_launches.value, b1=sc_k.launches.value,
+                b2=sc_k.verify_launches.value,
+                b1=sc_k.launches.value - timing_launches,
                 plain=st.calls.value)
         finally:
             await app.stop()
@@ -3343,27 +3497,21 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
     check(chain.submitted, "no card block on the mock chain")
     # B2 against its plain version at the path's shapes: a catch-up page
     # and a gossip batch with its forged shares (not counted above)
-    max_err = 0
-    k = sc_k.K_WINNERS
     for name, (_, _, checks, _, _) in (
             ("a sync page", vlog.calls[out["catchup_calls"] - 1]),
             ("a gossip batch", max(vlog.calls[out["catchup_calls"]:
                                               out["gossip_calls"]],
                                    key=lambda c: len(c[2])))):
-        words = torch.from_numpy(st.headers_to_words(
-            [c.header for c in checks]).view(np.int32)).to(dev)
-        limbs = torch.from_numpy(np.stack([tgt.target_to_limbs(c.target)
-                                           for c in checks]).view(np.int32)).to(dev)
-        a = sc_k.sha256d_verify(words, limbs, len(checks), k=k).cpu().numpy()
-        b = st.sha256d_verify_step(words, limbs, len(checks) - 1,
-                                   k=k).cpu().numpy()
-        max_err = max(max_err, int(np.abs(a.astype(np.int64)
-                                          - b.astype(np.int64)).max()))
-        check(max_err == 0, f"B2 != plain on {name}")
+        failures = b2_against_plain(dev, [(c.header, c.target)
+                                          for c in checks])
         print(f"   B2 vs plain version on {name} ({len(checks)} shares, "
-              f"{int(b.view(np.uint32)[2 * k])} failures): equal", flush=True)
-        if name == "a sync page":
-            beside = b2_beside(dev, words, limbs)
+              f"{failures} failures): equal", flush=True)
+    _, _, checks, _, _ = vlog.calls[out["catchup_calls"] - 1]
+    words = torch.from_numpy(st.headers_to_words(
+        [c.header for c in checks]).view(np.int32)).to(dev)
+    limbs = torch.from_numpy(np.stack([tgt.target_to_limbs(c.target)
+                                       for c in checks]).view(np.int32)).to(dev)
+    beside = b2_beside(dev, words, limbs)
     rate, rate_text = watch.between(out["t_g0"], out["t_g1"])
     catch = [c[1] for c in vlog.calls[:out["catchup_calls"]] if c[4]]
     gossip = [c[1] for c in vlog.calls[out["catchup_calls"]:out["gossip_calls"]]
@@ -3408,11 +3556,15 @@ def p2p_phase(dev, card: str, kernel_rate: float) -> dict:
           f"{out['failures']}; recovery {out['recovery']}", flush=True)
     print(f"   engine over the {P2P_GOSSIP_S:.0f} s gossip window: {rate_text} "
           f"= {rate / kernel_rate:.1%} of phase 5's kernel rate "
-          f"{kernel_rate / 1e9:.3f} GH/s; B1 launches {out['b1']}; the phase "
-          f"{run_s:.1f} s; {card}", flush=True)
+          f"{kernel_rate / 1e9:.3f} GH/s; the card over the window "
+          f"{out['card']}; {out['gc']}; B1 right after it "
+          f"{out['b1_now'] / 1e9:.3f} GH/s "
+          f"({out['b1_now'] / kernel_rate:.1%} of phase 5's; the engine "
+          f"{rate / out['b1_now']:.1%} of it); B1 launches {out['b1']}; the "
+          f"phase {run_s:.1f} s; {card}", flush=True)
     check(rate >= 0.97 * kernel_rate, f"the engine at {rate / kernel_rate:.1%} "
           "of B1's rate over the gossip window (limit 97%)")
-    return dict(b1=out["b1"], b2=out["b2"], max_err=max_err)
+    return dict(b1=out["b1"], b2=out["b2"], max_err=0)
 
 
 def scrypt_p2p_phase(dev, card: str) -> dict:
@@ -3505,6 +3657,484 @@ def scrypt_p2p_phase(dev, card: str) -> dict:
           f"{out['romix']} = verify launches = device batches; the verify "
           f"path = plain on a page ({len(checks)} lanes); {card}", flush=True)
     return dict(b5=out["romix"], max_err=max_err)
+
+
+# -- phase 28: the durable share chain and the API, killed and cold-booted ------
+
+DURABLE_CHAIN = 30_000    # > chain_tail_shares + one snapshot interval
+DURABLE_GOSSIP_S = 10.0
+DURABLE_SUFFIX = 2_000    # shares the overlay adds while the node is down
+DURABLE_LAG_EVERY_S = 0.05
+
+
+class RestoredLine(logging.Handler):
+    """The app's "share chain restored" log line, its arguments kept
+    (directory, height, source, events replayed, seconds, mode)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.args = None
+
+    def emit(self, record):
+        if record.msg.startswith("share chain restored"):
+            self.args = tuple(record.args)
+
+
+def thread_cpu_s(native_id: int) -> float:
+    """CPU seconds (user + system) a thread of this process has used."""
+    with open(f"/proc/self/task/{native_id}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def durable_node_process(conn, bootstrap, dsn, chain_dir) -> None:
+    """Process A or B of phase 28: an ``Application`` as ``cli p2p
+    --mine`` sets it, its chain durable in ``chain_dir`` and the API on,
+    on the card. Serves the phase over ``conn``: ("catchup", (height,
+    engine_off)) syncs to ``height`` (with the engine stopped, or under
+    B1), then samples the engine's hash count and the persist lag;
+    ("report", (t0, t1)) reads the window; ("finish", None) checks the
+    chain and stops the app. Process A is SIGKILLed instead."""
+    logging.getLogger("otedama.p2p.pool").setLevel(logging.ERROR)
+    try:
+        asyncio.run(_durable_node(conn, bootstrap, dsn, chain_dir))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+async def _durable_node(conn, bootstrap, dsn, chain_dir):
+    import torch
+
+    from otedama_tpu_torch.kernels import sha256_cuda as sc_k
+    from otedama_tpu_torch.kernels import sha256_torch as st
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+
+    loop = asyncio.get_running_loop()
+    inbox: asyncio.Queue = asyncio.Queue()
+
+    def read():
+        while True:
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                return
+            loop.call_soon_threadsafe(inbox.put_nowait, msg)
+
+    threading.Thread(target=read, daemon=True).start()
+    sc_k.load_library()
+    restored = RestoredLine()
+    applog = logging.getLogger("otedama.app")
+    applog.addHandler(restored)
+    applog.setLevel(logging.INFO)
+    for counter in (sc_k.launches, sc_k.verify_launches, st.calls):
+        counter.reset()
+    app = p2p_app(torch.device("cuda", 0), "sha256d", P2P_DIFFICULTY, dsn,
+                  MockChainClient(nbits=0x1D00FFFF), bootstrap, mine=True,
+                  chain_dir=chain_dir)
+    t0 = time.monotonic()
+    await app.start()
+    boot_s = time.monotonic() - t0
+    chain, store = app.p2p.chain, app.p2p.chain.store
+    vlog = VerifyLog(app.validator, app.engine)
+    watch, lags, lag_task = HashWatch(), [], None
+    await until(lambda: len(app.p2p.node.peers) == len(bootstrap), 30.0,
+                "the node's links to the overlay")
+    conn.send(("ready", dict(
+        api_port=app.api.port, restored=restored.args, boot_s=boot_s,
+        height=chain.height, archived=chain.archived_height,
+        replayed=store.stats["replayed_records"],
+        replay_s=store.stats["replay_seconds"])))
+
+    async def sample_lag():
+        while True:
+            lags.append((time.monotonic(), store.persist_lag))
+            await asyncio.sleep(DURABLE_LAG_EVERY_S)
+
+    def pairs(call):
+        return [(c.header, c.target) for c in call[2]]
+
+    while True:
+        cmd, arg = await inbox.get()
+        if cmd == "catchup":
+            target, engine_off = arg
+            await engine_running(app)
+            if engine_off:
+                async with app._restart_lock:
+                    await app.engine.stop()
+                    t_s = time.monotonic()
+                    await app.p2p.request_sync()
+                    await until(lambda: chain.height >= target, 120.0,
+                                "the catch-up")
+                    catchup_s = time.monotonic() - t_s
+                    await app.engine.start()
+                await engine_running(app)
+            else:
+                t_s = time.monotonic()
+                await app.p2p.request_sync()
+                await until(lambda: chain.height >= target, 120.0,
+                            "the catch-up")
+                catchup_s = time.monotonic() - t_s
+            calls = list(vlog.calls)
+            watch.start(app.engine)
+            lag_task = loop.create_task(sample_lag())
+            # CPU time from here to the report: the writer thread, the
+            # event loop's thread, the process
+            threads = {"writer": store._thread.native_id,
+                       "loop": threading.main_thread().native_id}
+            cpu0 = ({k: thread_cpu_s(v) for k, v in threads.items()},
+                    time.process_time(), time.monotonic())
+            collected = GcWatch().__enter__()
+            conn.send(("caught", dict(
+                seconds=catchup_s, height=chain.height, calls=len(calls),
+                page_s=[c[1] for c in calls], page=pairs(calls[-1]),
+                pages=app.p2p.stats["sync_pages_received"],
+                b2=sc_k.verify_launches.value,
+                device_batches=app.validator.stats["device_batches"])))
+        elif cmd == "report":
+            t_g0, t_g1 = arg
+            rate, rate_text = watch.between(t_g0, t_g1)
+            wall = time.monotonic() - cpu0[2]
+            cpu = {k: (thread_cpu_s(v) - cpu0[0][k]) / wall
+                   for k, v in threads.items()}
+            cpu["process"] = (time.process_time() - cpu0[1]) / wall
+            collected.__exit__(None, None, None)
+            # the API's registry synced and the engine read in one step
+            app.sync_metrics()
+            hashrate = app.engine.snapshot()["hashrate"]
+            calls = list(vlog.calls)
+            gossip = [c for c in calls if t_g0 <= c[0] <= t_g1]
+            snap = app.p2p.snapshot()
+            conn.send(("report", dict(
+                rate=rate, rate_text=rate_text, hashrate=hashrate, cpu=cpu,
+                gc=collected.summary(),
+                lags=[lag for t, lag in lags if t_g0 <= t <= t_g1],
+                gossip_s=[c[1] for c in gossip], calls=len(calls),
+                batch=pairs(max(gossip, key=lambda c: len(c[2]))),
+                wrong=sum(v != hashlib_verdict(c) for _, _, checks, verdicts, _
+                          in calls for c, v in zip(checks, verdicts)),
+                rejected=sum(not v for *_, verdicts, _ in calls
+                             for v in verdicts),
+                shares=sum(len(c[2]) for c in calls),
+                chain=snap["chain"], p2p_rejects=snap["rejects"],
+                verify_failures=snap["verify_failures"],
+                stats=dict(app.validator.stats),
+                b1=sc_k.launches.value, b2=sc_k.verify_launches.value,
+                plain=st.calls.value)))
+        else:
+            watch.stop()
+            lag_task.cancel()
+            snap = app.p2p.snapshot()
+            out = dict(tip=chain.tip, height=chain.height,
+                       weights=chain.weights(), full=chain.weights_full(),
+                       chain=snap["chain"], verify_failures=snap[
+                           "verify_failures"], rejects=snap["rejects"],
+                       stats=dict(app.validator.stats),
+                       wrong=sum(v != hashlib_verdict(c)
+                                 for _, _, checks, verdicts, _ in vlog.calls
+                                 for c, v in zip(checks, verdicts)))
+            await app.stop()
+            out.update(b1=sc_k.launches.value, b2=sc_k.verify_launches.value,
+                       plain=st.calls.value)
+            conn.send(("finished", out))
+            return
+
+
+class DurableNode(Child):
+    """The phase's end of ``durable_node_process``."""
+
+    def __init__(self, name, bootstrap, dsn, chain_dir):
+        super().__init__(name, durable_node_process, bootstrap, dsn,
+                         chain_dir)
+
+    def kill(self) -> None:
+        self.proc.kill()                 # SIGKILL
+        self.proc.join(30.0)
+
+
+def scrape(port: int, path: str) -> tuple[float, str]:
+    """(seconds, body) of one GET on the node's API."""
+    import urllib.request
+
+    t0 = time.monotonic()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10.0) as resp:
+        body = resp.read().decode()
+    return time.monotonic() - t0, body
+
+
+def gauge(text: str, name: str) -> float | None:
+    """The value of an unlabelled gauge in a Prometheus exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def cli_status(port: int) -> subprocess.CompletedProcess:
+    """``python -m otedama_tpu_torch.cli status`` against the node's API,
+    from a process of its own."""
+    env = {**os.environ, "OTEDAMA_API_HOST": "127.0.0.1",
+           "OTEDAMA_API_PORT": str(port)}
+    return subprocess.run([sys.executable, "-m", "otedama_tpu_torch.cli",
+                           "status"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def durable_phase(dev, card: str, kernel_rate: float) -> dict:
+    """Phase 28: ``cli p2p --mine`` with a durable chain and the API on the
+    card, SIGKILLed in mid-gossip and cold-booted from its directory.
+    Returns B1's and B2's launches over both processes (B2 held equal to
+    its plain version at the path's shapes, or the phase fails)."""
+    import shutil
+    import tempfile
+
+    from otedama_tpu_torch.kernels.card import Sampler
+
+    phase(f"28 `cli p2p --mine` with p2p.chain_dir and the API on the card: "
+          f"catch-up of {DURABLE_CHAIN} shares from {P2P_SEEDS} loopback "
+          f"nodes, {DURABLE_GOSSIP_S:.0f} s of gossip under B1 with "
+          f"/metrics, /health and `cli status`, a SIGKILL in mid-gossip, "
+          f"{DURABLE_SUFFIX} shares more, a cold boot from the directory "
+          f"and the suffix caught up under B1")
+    Emulator = load_pg_emulator()
+    overlay = Overlay(P2P_SEEDS, DURABLE_CHAIN, P2P_DIFFICULTY)
+    info = overlay.info
+    chain_dir = tempfile.mkdtemp(prefix="otedama-chain-")
+    nodes: list = []
+    out: dict = {}
+
+    async def run28(emu_a, emu_b):
+        loop = asyncio.get_running_loop()
+        a = DurableNode("node process A", info["ports"], emu_a.dsn, chain_dir)
+        nodes.append(a)
+        ready = await a.reply("ready", 300.0)
+        check(ready["height"] == 0 and ready["restored"][2] == "empty",
+              f"process A did not boot empty: {ready}")
+        port = ready["api_port"]
+        out["a_caught"] = await a.ask("catchup", (DURABLE_CHAIN, True),
+                                      "caught", 180.0)
+        # gossip under B1: a batch of 500 a second; /metrics and the
+        # chain's provider scraped after each, `cli status` meanwhile
+        status = loop.run_in_executor(None, cli_status, port)
+        scrapes, persisted = [], -1
+        with Sampler(period=1.0) as sampled:
+            t_g0 = time.monotonic()
+            for k in range(int(DURABLE_GOSSIP_S)):
+                await asyncio.sleep(max(0.0, t_g0 + k - time.monotonic()))
+                await overlay.call("flood", (P2P_BATCH, 0))
+                took, text = await loop.run_in_executor(None, scrape, port,
+                                                        "/metrics")
+                scrapes.append(took)
+                persisted = max(persisted, gauge(
+                    text, "otedama_chain_persisted_height") or -1)
+                _, body = await loop.run_in_executor(None, scrape, port,
+                                                     "/api/v1/stats/p2p")
+                persisted = max(persisted, json.loads(body)["chain"][
+                    "store"]["persisted_height"])
+            t_g1 = t_g0 + DURABLE_GOSSIP_S
+            await asyncio.sleep(max(0.0, t_g1 - time.monotonic()))
+        out["card"], out["load"] = sampled.summary(), os.getloadavg()
+        _, health = await loop.run_in_executor(None, scrape, port, "/health")
+        _, engine_api = await loop.run_in_executor(
+            None, scrape, port, "/api/v1/stats/engine")
+        out["a_report"] = await a.ask("report", (t_g0, t_g1), "report")
+        _, metrics = await loop.run_in_executor(None, scrape, port,
+                                                "/metrics")
+        _, body = await loop.run_in_executor(None, scrape, port,
+                                             "/api/v1/stats/p2p")
+        persisted = max(persisted, json.loads(body)["chain"]["store"][
+            "persisted_height"], gauge(metrics,
+                                       "otedama_chain_persisted_height"))
+        out["status"] = await status
+        # the SIGKILL, while A verifies and links the next batch
+        await overlay.call("flood", (P2P_BATCH, 0))
+        await asyncio.sleep(0.02)
+        a.kill()
+        out["b1_now"] = await loop.run_in_executor(None, b1_now, dev)
+        out.update(health=json.loads(health), engine_api=json.loads(
+            engine_api), metrics=metrics, scrapes=scrapes,
+                   persisted=int(persisted), t_g0=t_g0, t_g1=t_g1)
+        # the overlay goes on while the node is down
+        for _ in range(DURABLE_SUFFIX // P2P_BATCH):
+            await overlay.call("flood", (P2P_BATCH, 0))
+        t_c = time.monotonic()
+        while True:
+            state = await overlay.call("state", [])
+            if len(set(state["tips"])) == 1:
+                break
+            check(time.monotonic() < t_c + 60.0,
+                  f"the overlay's tips: {set(state['tips'])}")
+            await asyncio.sleep(0.25)
+        target = state["tips"][0][1]
+        b = DurableNode("node process B", info["ports"], emu_b.dsn, chain_dir)
+        nodes.append(b)
+        out["b_ready"] = await b.reply("ready", 300.0)
+        out["b_caught"] = await b.ask("catchup", (target, False), "caught",
+                                      180.0)
+        out["b_finish"] = await b.ask("finish", None, "finished", 120.0)
+        b.close()
+        out["state"] = await overlay.call("state", [])
+        out["target"] = target
+        await overlay.call("stop")
+
+    try:
+        with Emulator() as emu_a, Emulator() as emu_b:
+            t_run = time.monotonic()
+            asyncio.run(run28(emu_a, emu_b))
+            run_s = time.monotonic() - t_run
+    finally:
+        for node in nodes:
+            if node.proc.is_alive():
+                node.proc.kill()
+            node.proc.join(30.0)
+        overlay.close()
+        shutil.rmtree(chain_dir, ignore_errors=True)
+    a_caught, rep_a = out["a_caught"], out["a_report"]
+    b_ready, b_caught, fin = out["b_ready"], out["b_caught"], out["b_finish"]
+    state, persisted = out["state"], out["persisted"]
+    # A: the catch-up and the gossip, every verdict hashlib's, no rail
+    check(a_caught["height"] == DURABLE_CHAIN,
+          f"A caught up to {a_caught['height']}")
+    check(rep_a["wrong"] == 0 and rep_a["rejected"] == 0
+          and not rep_a["p2p_rejects"] and rep_a["verify_failures"] == 0,
+          f"A's verdicts: {rep_a['wrong']} differ from hashlib's, "
+          f"{rep_a['rejected']} rejected, rejects {rep_a['p2p_rejects']}")
+    stats_a = rep_a["stats"]
+    check(rep_a["b2"] == stats_a["device_batches"] > 0
+          and stats_a["device_errors"] == stats_a["tripwire_mismatches"]
+          == stats_a["overflows"] == 0,
+          f"A: B2 launches {rep_a['b2']}, device batches "
+          f"{stats_a['device_batches']}, rails {stats_a}")
+    check(rep_a["b1"] > 0 and rep_a["plain"] == 0,
+          f"A: B1 launches {rep_a['b1']}, plain calls {rep_a['plain']}")
+    store_a = rep_a["chain"]["store"]
+    check(rep_a["chain"]["persist_failures"] == 0 and not store_a["degraded"]
+          and store_a["writer_errors"] == 0 and store_a["ring_dropped"] == 0,
+          f"A's store degraded: {store_a}")
+    check(rep_a["chain"]["archived_height"] > 0
+          and store_a["snapshot_height"] > 0,
+          f"A archived {rep_a['chain']['archived_height']}, snapshot at "
+          f"{store_a['snapshot_height']}")
+    # the API on A: health from the card's supervision, the engine's rate,
+    # the chain's gauges, `cli status`
+    health = out["health"]
+    check(health["status"] == "ok" and set(
+        health["device_states"].values()) == {"healthy"},
+          f"/health: {health}")
+    metrics = out["metrics"]
+    api_rate = gauge(metrics, "otedama_hashrate")
+    check(api_rate is not None
+          and abs(api_rate - rep_a["hashrate"]) <= 0.02 * rep_a["hashrate"]
+          and abs(out["engine_api"]["hashrate"] - rep_a["hashrate"])
+          <= 0.05 * rep_a["hashrate"],
+          f"the API's engine rate: /metrics {api_rate}, the engine's "
+          f"snapshot {rep_a['hashrate']}, /api/v1/stats/engine "
+          f"{out['engine_api']['hashrate']}, the window {rep_a['rate']}")
+    for name in ("otedama_chain_persist_lag", "otedama_chain_persisted_height",
+                 "otedama_chain_archived_height",
+                 "otedama_chain_writer_degraded",
+                 "otedama_chain_snapshot_height", "otedama_p2p_chain_height",
+                 "otedama_validation_device_ok"):
+        check(gauge(metrics, name) is not None, f"/metrics lacks {name}")
+    check(gauge(metrics, "otedama_chain_writer_degraded") == 0
+          and gauge(metrics, "otedama_validation_device_ok") == 1,
+          "/metrics: writer degraded or validation off")
+    status = out["status"]
+    check(status.returncode == 0, f"cli status: {status.stderr[-2000:]}")
+    status_doc = json.loads(status.stdout)
+    check(status_doc["p2p"]["chain"]["height"] >= DURABLE_CHAIN
+          and status_doc["engine"]["algorithm"] == "sha256d",
+          "cli status: the p2p height or the engine")
+    # B: the cold boot restores at least what A's API called durable
+    restored = b_ready["restored"]
+    check(restored is not None and restored[2] == "snapshot"
+          and restored[1] == b_ready["height"] >= persisted + 1,
+          f"B restored {restored}, A's last scraped persisted height "
+          f"{persisted}")
+    suffix = out["target"] - b_ready["height"]
+    pages_whole = -(-out["target"] // 200)
+    check(b_caught["height"] == out["target"]
+          and b_caught["b2"] == b_caught["device_batches"] > 0
+          and b_caught["b2"] <= -(-suffix // 200) + P2P_SEEDS + 2
+          and b_caught["b2"] < pages_whole // 4,
+          f"B's suffix catch-up: {suffix} shares, B2 launches "
+          f"{b_caught['b2']}, device batches {b_caught['device_batches']}, "
+          f"the whole chain's pages {pages_whole}")
+    check(state["tips"] == [(fin["tip"], out["target"])] * P2P_SEEDS
+          and fin["height"] == out["target"]
+          and fin["weights"] == fin["full"] == state["weights"][0],
+          f"B's tip or weights: B at {fin['height']}, the overlay "
+          f"{set(state['tips'])}")
+    store_b = fin["chain"]["store"]
+    check(fin["chain"]["persist_failures"] == 0 and not store_b["degraded"]
+          and store_b["writer_errors"] == 0 and fin["wrong"] == 0
+          and fin["verify_failures"] == 0 and not fin["rejects"]
+          and fin["plain"] == 0 and fin["b1"] > 0
+          and fin["b2"] == fin["stats"]["device_batches"],
+          f"B: persist failures {fin['chain']['persist_failures']}, store "
+          f"{store_b}, verdicts wrong {fin['wrong']}, B1 {fin['b1']}, B2 "
+          f"{fin['b2']}, device batches {fin['stats']['device_batches']}")
+    # B2 against its plain version at the path's shapes
+    for name, pairs in (("A's last catch-up page", a_caught["page"]),
+                        ("A's largest gossip batch", rep_a["batch"]),
+                        ("B's last suffix page", b_caught["page"])):
+        b2_against_plain(dev, pairs)
+        print(f"   B2 vs plain version on {name} ({len(pairs)} shares): "
+              "equal", flush=True)
+    lags = sorted(rep_a["lags"])
+    rate = rep_a["rate"]
+    print(f"   A from an empty directory: {DURABLE_CHAIN} shares caught up "
+          f"with the engine stopped in {a_caught['seconds']:.3f} s = "
+          f"{DURABLE_CHAIN / a_caught['seconds']:.0f} shares/s, "
+          f"{a_caught['pages']} pages, {a_caught['calls']} verify_batch "
+          f"calls ({quantiles(a_caught['page_s'])}); archived "
+          f"{rep_a['chain']['archived_height']}, snapshot at "
+          f"{store_a['snapshot_height']}, segments {store_a['journal']} "
+          f"{store_a['archive']}", flush=True)
+    print(f"   A's gossip window, {DURABLE_GOSSIP_S:.0f} s of {P2P_BATCH} a "
+          f"second under B1: verify_batch {quantiles(rep_a['gossip_s'])}; "
+          f"persist lag (events, sampled every {DURABLE_LAG_EVERY_S * 1e3:.0f}"
+          f" ms) p50 {lags[len(lags) // 2]}, p99 "
+          f"{lags[min(len(lags) - 1, int(len(lags) * 0.99))]}, max "
+          f"{lags[-1]} (n={len(lags)}); a /metrics scrape "
+          f"{quantiles(out['scrapes'])}; {rep_a['shares']} verdicts = "
+          f"hashlib's; B2 launches {rep_a['b2']} = device batches", flush=True)
+    print(f"   the API: /health {health['status']} {health['device_states']};"
+          f" otedama_hashrate {api_rate:.6g} = the engine's snapshot "
+          f"{rep_a['hashrate']:.6g}, /api/v1/stats/engine "
+          f"{out['engine_api']['hashrate']:.6g} (the window's steady rate "
+          f"{rate:.6g}); persist lag gauge "
+          f"{gauge(metrics, 'otedama_chain_persist_lag'):g}; `cli status` "
+          f"read height {status_doc['p2p']['chain']['height']}", flush=True)
+    print(f"   SIGKILL in mid-gossip; A's API last called durable height "
+          f"{persisted}; B's cold boot: {restored[1]} shares via "
+          f"{restored[2]}, {restored[3]} events replayed in "
+          f"{restored[4]:.3f} s ({b_ready['boot_s']:.2f} s to a started "
+          f"app); the suffix: {suffix} shares ({DURABLE_SUFFIX} added while "
+          f"down) in {b_caught['seconds']:.3f} s = "
+          f"{suffix / b_caught['seconds']:.0f} shares/s under B1, "
+          f"{b_caught['pages']} pages, B2 launches {b_caught['b2']} = device "
+          f"batches (the whole chain: {pages_whole} pages), page "
+          f"{quantiles(b_caught['page_s'])}; B on the overlay's tip at "
+          f"{fin['height']}, weights() = weights_full(); persist failures, "
+          f"writer degraded 0", flush=True)
+    cpu = rep_a["cpu"]
+    print(f"   over A's gossip window: the card {out['card']}; B1 right after "
+          f"it (the parent, A killed) {out['b1_now'] / 1e9:.3f} GH/s "
+          f"({out['b1_now'] / kernel_rate:.1%} of phase 5's; the engine "
+          f"{rep_a['rate'] / out['b1_now']:.1%} of it); CPU of a core "
+          f"in A: the chain writer thread {cpu['writer']:.1%}, the event "
+          f"loop's thread {cpu['loop']:.1%}, the process {cpu['process']:.1%};"
+          f" the host's load average {out['load'][0]:.2f} over "
+          f"{os.cpu_count()} CPUs; in A {rep_a['gc']}", flush=True)
+    print(f"   engine over A's gossip window: {rep_a['rate_text']} = "
+          f"{rate / kernel_rate:.1%} of phase 5's kernel rate; B1 launches "
+          f"A {rep_a['b1']}, B {fin['b1']}; the phase {run_s:.1f} s; {card}",
+          flush=True)
+    check(rate >= 0.97 * kernel_rate, f"the engine at {rate / kernel_rate:.1%}"
+          " of B1's rate over A's gossip window (limit 97%)")
+    return dict(b1=rep_a["b1"] + fin["b1"], b2=rep_a["b2"] + fin["b2"])
 
 
 def p2p_phases(dev, card: str, kernel_rate: float) -> dict:
@@ -3881,6 +4511,13 @@ def main() -> int:
                    f"(phase 27): {p2p['scrypt']['b5']}")
     b5["launches"] += p2p["scrypt"]["b5"]
     b5["max_abs_err"] = max(b5["max_abs_err"], p2p["scrypt"]["max_err"])
+    durable = durable_phase(dev, card, kernel_rate)
+    b1["path"] += (f"; durable `cli p2p --mine`, killed and cold-booted "
+                   f"(phase 28): {durable['b1']}")
+    b1["launches"] += durable["b1"]
+    b2_record["path"] += (f"; its catch-up, gossip and suffix pages (phase "
+                          f"28): {durable['b2']}")
+    b2_record["launches"] += durable["b2"]
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)

@@ -3,7 +3,8 @@
 single-server pool side, the work source, the validator wiring, the
 stratum listeners, ``_start_miner_side``'s upstream, loopback and chain
 branches, upstream failover, precompile-then-start,
-``_start_supervision``, ``stop``, ``snapshot``). Modes:
+``_start_supervision``, ``_start_api``, ``_metrics_loop``, ``stop``,
+``snapshot``). Modes:
 
 - solo: the engine mines jobs from a ``TemplateSource`` polling a chain
   client — the node named by ``pool.chain_rpc_url`` through
@@ -21,13 +22,18 @@ branches, upstream failover, precompile-then-start,
   joins the gossip overlay and keeps the PoW-verified share chain,
   catching up by locator sync; gossip batches and sync pages verify
   through the one ``ValidationBackend`` (B2 for a sha256d chain, B5's
-  verify path for a scrypt chain) when ``validation.enabled``.
+  verify path for a scrypt chain) when ``validation.enabled``. With
+  ``p2p.chain_dir`` the chain is durable (``p2p/chainstore.py``): the
+  node cold-boots from its segments and snapshot before it joins the
+  overlay, so locator sync covers only what a crash cut off.
 
 The books go to SQLite or PostgreSQL (``pool.database``). A
-``FailureDetector`` and a ``RecoveryManager`` supervise the engine. The
-reference's sharded front-end, Stratum V2, the durable share-chain
-store, settlement, regions, merged mining and API tiers are not ported
-yet (``config/schema.py`` refuses them by name).
+``FailureDetector`` and a ``RecoveryManager`` supervise the engine. With
+``api.enabled`` an ``ApiServer`` serves ``/health`` (the engine's device
+supervision), ``/metrics`` (synced every 5 s), ``/api/v1/status`` and the
+web pages. The reference's sharded front-end, Stratum V2, settlement,
+regions and merged mining are not ported yet (``config/schema.py``
+refuses them by name), and neither are their API providers.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import asyncio
 import logging
 import time
 
+from otedama_tpu_torch.api.server import ApiConfig as ApiServerConfig
+from otedama_tpu_torch.api.server import ApiServer
 from otedama_tpu_torch.config.schema import AppConfig
 from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
 from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
@@ -98,6 +106,7 @@ class Application:
         self.validator = None       # device-batched share validation
         self.failover = None        # upstream failover manager
         self.p2p = None             # P2P share-chain node
+        self.api: ApiServer | None = None
         self._upstream_auth: dict[str, tuple[str, str]] = {}
         self._active_upstream = None
         self.worksource: TemplateSource | None = None
@@ -190,11 +199,14 @@ class Application:
         await self._start_stratum_listeners()
         if cfg.mining.enabled:
             await self._start_miner_side()
+        if cfg.api.enabled:
+            await self._start_api()
         await self._start_supervision()
         log.info("application started (%s)", ", ".join(
             name for name, on in (("mining", cfg.mining.enabled),
                                   ("pool", cfg.pool.enabled),
-                                  ("p2p", cfg.p2p.enabled)) if on
+                                  ("p2p", cfg.p2p.enabled),
+                                  ("api", cfg.api.enabled)) if on
         ) or "idle")
 
     async def _start_pool_side(self) -> None:
@@ -246,6 +258,26 @@ class Application:
             host, _, port = str(entry).rpartition(":")
             if host:
                 bootstrap.append((host, int(port)))
+        store = None
+        if cfg.chain_dir:
+            # durable share chain: WAL segments + settled archive +
+            # snapshots under chain_dir; the node cold-boots from them
+            # below, BEFORE joining the overlay, so locator sync only
+            # covers what a crash cut off past the last durable record
+            from otedama_tpu_torch.p2p.chainstore import (
+                ChainStore,
+                ChainStoreConfig,
+            )
+
+            store = ChainStore(ChainStoreConfig(
+                path=cfg.chain_dir,
+                segment_bytes=cfg.chain_segment_bytes,
+                fsync_interval=cfg.chain_fsync_interval,
+                snapshot_interval=cfg.chain_snapshot_interval,
+                tail_shares=cfg.chain_tail_shares,
+                durability=cfg.chain_durability,
+                ring_max=cfg.chain_ring_max,
+            ))
         self.p2p = P2PPool(
             NodeConfig(
                 host=cfg.host, port=cfg.port, max_peers=cfg.max_peers,
@@ -263,7 +295,17 @@ class Application:
                 share_interval=cfg.share_interval,
                 sync_page=cfg.sync_page,
             ),
+            store=store,
         )
+        if store is not None:
+            info = self.p2p.chain.load()
+            log.info(
+                "share chain restored from %s: height %d via %s "
+                "(%d events replayed in %.3fs; durability mode %s)",
+                cfg.chain_dir, info["height"], info["source"],
+                info["replayed"] + info["reorgs_replayed"], info["seconds"],
+                cfg.chain_durability,
+            )
         await self.p2p.start()
         self._started.append(self.p2p)
 
@@ -424,6 +466,77 @@ class Application:
             log.info("failing over to upstream %s", selected.name)
             await self._connect_upstream(selected)
 
+    async def _start_api(self) -> None:
+        """The API server with the providers of what the port carries:
+        the reference also registers ``stratum_v2``, ``region``,
+        ``worksource``, ``settlement``, ``profit``, ``backups``,
+        ``native`` and ``compile``, whose subsystems are not ported."""
+        from otedama_tpu_torch.utils import faults
+
+        cfg = self.config.api
+        self.api = ApiServer(ApiServerConfig(
+            host=cfg.host, port=cfg.port,
+            rate_limit_per_minute=cfg.rate_limit_per_minute,
+            auth_secret=cfg.auth_secret,
+        ))
+        if self.engine is not None:
+            self.api.add_provider("engine", self.engine.snapshot)
+            # /health readiness follows device supervision: 200 while
+            # serving (even degraded), 503 once no device can mine
+            self.api.health_source = self.engine.device_health
+        if self.client is not None:
+            self.api.add_provider("upstream", lambda: dict(self.client.stats))
+        if self.server is not None:
+            self.api.add_provider("stratum", self.server.snapshot)
+        if self.pool is not None:
+            self.api.add_provider("pool", self.pool.snapshot)
+        if self.p2p is not None:
+            self.api.add_provider("p2p", self.p2p.snapshot)
+        self.api.add_provider("benchmarks", self.algo_manager.snapshot)
+        # chaos observability: per-point hit/fault counters of the active
+        # fault injector ({"active": False} outside chaos runs)
+        self.api.add_provider("fault_injection", faults.snapshot_active)
+        if self.db is not None:
+            # /api/v1/logs/audit reads the pool db's audit trail
+            self.api.audit_source = self.db.query_audit
+        await self.api.start()
+        self._started.append(self.api)
+        self._tasks.append(asyncio.create_task(self._metrics_loop()))
+
+    def sync_metrics(self) -> None:
+        """One pass of every metric sync the port has onto the API's
+        registry (the metrics loop runs it every 5 s)."""
+        api = self.api
+        # chain-RPC pool telemetry is engine-independent: a pool-only
+        # node still polls templates and submits blocks over the pooled
+        # RPC connections
+        chains = {
+            name: c for name, c in (
+                ("solo", self.chain),
+                ("pool", getattr(self.pool, "chain", None)),
+            ) if c is not None
+        }
+        if chains:
+            api.sync_rpc_pool_metrics(chains)
+        if self.server is not None:
+            api.sync_pool_server_metrics(self.server)
+        if self.p2p is not None:
+            snap = self.p2p.snapshot()
+            api.sync_p2p_metrics(snap)
+            api.sync_chain_metrics(snap.get("chain", {}))
+        if self.validator is not None:
+            api.sync_validation_metrics(self.validator)
+        if self.engine is not None:
+            api.sync_engine_metrics(self.engine.snapshot())
+            if self.client is not None:
+                api.sync_client_metrics(self.client)
+
+    async def _metrics_loop(self) -> None:
+        while True:
+            await asyncio.sleep(5.0)
+            if self.api is not None:
+                self.sync_metrics()
+
     async def _start_supervision(self) -> None:
         """Engine recovery (restart a dead engine) and the failure
         detector with its strategies, in the serve path."""
@@ -502,8 +615,13 @@ class Application:
                 self.failure_detector.add_strategy(strategy)
             await self.failure_detector.start()
             self._started.append(self.failure_detector)
+            if self.api is not None:
+                self.api.add_provider("failures",
+                                      self.failure_detector.snapshot)
         await self.recovery.start()
         self._started.append(self.recovery)
+        if self.api is not None:
+            self.api.add_provider("recovery", self.recovery.snapshot)
 
     async def stop(self) -> None:
         for t in self._tasks:

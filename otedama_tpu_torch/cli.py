@@ -1,12 +1,15 @@
-"""Command-line interface: ``start``, ``solo``, ``pool``, ``p2p`` and
-``benchmark`` (counterpart of ``otedama_tpu/cli.py``).
+"""Command-line interface: ``init``, ``start``, ``solo``, ``pool``,
+``p2p``, ``benchmark`` and ``status`` (counterpart of
+``otedama_tpu/cli.py``).
 
 Run as ``python -m otedama_tpu_torch.cli <command>``. Every command runs
 on the card (``mining.device`` / ``--device`` ``cuda``) unless asked for
 another device; ``start`` with ``upstreams`` in the config mines for
 those pools, ``pool --mine`` serves miners and mines for itself through a
 loopback stratum client, and ``p2p --mine`` does the same while its node
-keeps the share chain of the gossip overlay.
+keeps the share chain of the gossip overlay (durable under
+``p2p.chain_dir``). ``status`` asks a running instance's API (``api``
+section of the config) for ``/api/v1/status``.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import signal
 import sys
+import urllib.request
 
 
 def _setup_logging(level: str, logfile: str = "") -> None:
@@ -32,6 +37,20 @@ def _setup_logging(level: str, logfile: str = "") -> None:
         format="%(asctime)s %(levelname)-7s %(name)s: %(message)s",
         handlers=handlers,
     )
+
+
+def cmd_init(args) -> int:
+    from otedama_tpu_torch.config.schema import example_yaml
+
+    path = args.config or "otedama.yaml"
+    if os.path.exists(path) and not args.force:
+        print(f"{path} already exists (use --force to overwrite)",
+              file=sys.stderr)
+        return 1
+    with open(path, "w") as f:
+        f.write(example_yaml())
+    print(f"wrote {path}")
+    return 0
 
 
 async def _run_app(cfg) -> int:
@@ -115,6 +134,20 @@ def cmd_benchmark(args) -> int:
     return 0 if results else 1
 
 
+def cmd_status(args) -> int:
+    from otedama_tpu_torch.config.schema import load_config
+
+    cfg = load_config(args.config)
+    url = f"http://{cfg.api.host}:{cfg.api.port}/api/v1/status"
+    try:
+        with urllib.request.urlopen(url, timeout=5.0) as resp:
+            print(json.dumps(json.loads(resp.read()), indent=2))
+        return 0
+    except OSError as e:
+        print(f"cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="otedama-tpu-torch",
@@ -123,6 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("init", help="write an example config file")
+    p.add_argument("--force", action="store_true")
+    p.set_defaults(fn=cmd_init)
 
     p = sub.add_parser("start", help="start with the config file as-is "
                        "(upstreams: mine for those pools)")
@@ -154,6 +191,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--hashes", type=int, default=None)
     p.add_argument("--device", default="cuda", help="torch device")
     p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("status", help="query a running instance's API")
+    p.set_defaults(fn=cmd_status)
     return parser
 
 

@@ -1,16 +1,19 @@
 """Configuration schema: YAML file + env overrides + validation
 (counterpart of ``otedama_tpu/config/schema.py``, with the sections the
-solo, pool, upstream and p2p paths read: mining, stratum, pool, work,
-validation, p2p, logging and ``upstreams``).
+solo, pool, upstream, p2p and API paths read: mining, stratum, pool,
+work, validation, p2p (with the durable chain store's ``chain_*``
+knobs), api, logging and ``upstreams``).
 
-Field names, defaults and validation rules are the reference's;
-``mining.device`` is the port's own (the torch device the backend runs
-on). A setting whose code has not been ported yet is refused by
-``validate_config`` with the ROADMAP item that brings it: the sharded
-and fleet front-ends and Stratum V2 (A14), the durable share-chain store
-(A6c), settlement and multi-region replication (A13). Precedence: env > file >
-defaults. YAML parsing uses pyyaml when present, else a minimal
-two-level parser.
+Field names, defaults and validation rules are the reference's, but for
+two: ``mining.device`` is the port's own (the torch device the backend
+runs on), and ``api.enabled`` defaults to false (the reference: true),
+so that no entry point opens a listening socket its caller did not ask
+for; ``example_yaml()`` (``cli init``) turns it on. A setting whose code
+has not been ported yet is refused by ``validate_config`` with the
+ROADMAP item that brings it: the sharded and fleet front-ends and
+Stratum V2 (A14), settlement and multi-region replication (A13).
+Precedence: env > file > defaults. YAML parsing uses pyyaml when
+present, else a minimal two-level parser.
 """
 
 from __future__ import annotations
@@ -211,10 +214,37 @@ class P2PConfig:
     # shares per locator-sync response page (bounded catch-up after
     # partitions; clamped to the wire MAX_SYNC_PAGE)
     sync_page: int = 200
-    # the durable chain store's directory (p2p/chainstore.py): carried so
-    # a config that sets it is refused by name (ROADMAP A6c), never
-    # ignored; the store's other chain_* knobs come with it
+    # -- durable chain store (p2p/chainstore.py) -----------------------------
+    # directory for WAL segments + settled archive + snapshots; empty =
+    # in-memory only (a reboot forfeits the window and re-syncs from
+    # peers)
     chain_dir: str = ""
+    # MOST journal events the store's writer thread folds into one
+    # group-fsync (1 = every best-chain event fsynced individually).
+    # The commit path never waits on this — it enqueues and returns;
+    # the knob shapes the watermark's advance granularity and the
+    # crash-loss window (visible as otedama_chain_persist_lag)
+    chain_fsync_interval: int = 64
+    # segment file rotation threshold, bytes
+    chain_segment_bytes: int = 8 << 20
+    # durability contract consumers honour ("ack" | "async"):
+    #   ack   = a ledger awaits the durability watermark between chain
+    #           commit and db transaction, so a miner is never told
+    #           "accepted" for a share the journal could lose;
+    #   async = verdicts return after the in-memory link; a crash loses
+    #           at most the exported persist lag
+    chain_durability: str = "ack"
+    # bounded event ring between the commit path and the writer thread;
+    # a wedged disk that fills it DROPS further journal events (counted,
+    # alarmed, healed from peers) instead of stalling the event loop
+    chain_ring_max: int = 65536
+    # write a snapshot each time the archived boundary advances this
+    # many shares (bounds cold-boot replay to ~this + max_reorg_depth)
+    chain_snapshot_interval: int = 8192
+    # in-memory best-chain tail, shares: settled positions beyond it are
+    # archived out of RAM, so pplns_window can reach millions of shares
+    # with flat memory (the window is an incremental accumulator)
+    chain_tail_shares: int = 16384
 
 
 @dataclasses.dataclass
@@ -237,6 +267,16 @@ class ValidationSettings:
 
 
 @dataclasses.dataclass
+class ApiConfig:
+    # off unless asked for (the reference: on); cli init's file turns it on
+    enabled: bool = False
+    host: str = "127.0.0.1"
+    port: int = 8080
+    rate_limit_per_minute: int = 600
+    auth_secret: str = ""              # empty = admin endpoints disabled
+
+
+@dataclasses.dataclass
 class LoggingConfig:
     level: str = "info"
     file: str = ""
@@ -254,6 +294,7 @@ class AppConfig:
     validation: ValidationSettings = dataclasses.field(
         default_factory=ValidationSettings)
     p2p: P2PConfig = dataclasses.field(default_factory=P2PConfig)
+    api: ApiConfig = dataclasses.field(default_factory=ApiConfig)
     logging: LoggingConfig = dataclasses.field(default_factory=LoggingConfig)
     upstreams: list = dataclasses.field(default_factory=list)  # [UpstreamConfig]
 
@@ -267,6 +308,7 @@ _SECTIONS = {
     "region": RegionSettings,
     "validation": ValidationSettings,
     "p2p": P2PConfig,
+    "api": ApiConfig,
     "logging": LoggingConfig,
 }
 
@@ -365,7 +407,7 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("mining.watchdog_first_deadline must be positive")
     if cfg.mining.max_probes < 0:
         errors.append("mining.max_probes must be >= 0")
-    for name in ("stratum", "p2p"):
+    for name in ("stratum", "p2p", "api"):
         if not (0 <= getattr(cfg, name).port <= 65535):
             errors.append(f"{name}.port out of range")
     if cfg.stratum.initial_difficulty <= 0:
@@ -384,9 +426,6 @@ def validate_config(cfg: AppConfig) -> list[str]:
     if cfg.stratum.v2_enabled:
         errors.append("stratum.v2_enabled needs Stratum V2, not ported yet "
                       "(ROADMAP A14)")
-    if cfg.p2p.chain_dir:
-        errors.append("p2p.chain_dir needs the durable share-chain store "
-                      "(p2p/chainstore.py), not ported yet (ROADMAP A6c)")
     if cfg.settlement.enabled:
         errors.append("settlement.enabled needs the settlement engine, not "
                       "ported yet (ROADMAP A13)")
@@ -429,6 +468,24 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("p2p.share_interval must be positive")
     if cfg.p2p.sync_page < 1:
         errors.append("p2p.sync_page must be >= 1")
+    if cfg.p2p.chain_fsync_interval < 1:
+        errors.append("p2p.chain_fsync_interval must be >= 1")
+    if cfg.p2p.chain_segment_bytes < 4096:
+        errors.append("p2p.chain_segment_bytes must be >= 4096")
+    if cfg.p2p.chain_snapshot_interval < 1:
+        errors.append("p2p.chain_snapshot_interval must be >= 1")
+    if cfg.p2p.chain_tail_shares < cfg.p2p.max_reorg_depth:
+        errors.append(
+            "p2p.chain_tail_shares must be >= p2p.max_reorg_depth "
+            "(the mutable suffix must stay in memory)"
+        )
+    if cfg.p2p.chain_durability not in ("ack", "async"):
+        errors.append("p2p.chain_durability must be 'ack' or 'async'")
+    if cfg.p2p.chain_ring_max < cfg.p2p.chain_fsync_interval:
+        errors.append(
+            "p2p.chain_ring_max must be >= p2p.chain_fsync_interval "
+            "(the writer must be able to assemble one fsync group)"
+        )
     if cfg.work.poll_seconds <= 0:
         errors.append("work.poll_seconds must be positive")
     try:
@@ -436,3 +493,85 @@ def validate_config(cfg: AppConfig) -> list[str]:
     except ValueError:
         errors.append("work.payout_script must be hex")
     return errors
+
+
+def example_yaml() -> str:
+    """The example config ``cli init`` writes: every section the port
+    reads, at its defaults, with the API turned on."""
+    return """\
+# otedama-tpu-torch configuration
+mining:
+  enabled: true
+  algorithm: sha256d     # sha256d | sha256 | scrypt
+  backend: auto          # auto (= cuda) | cuda | torch | python
+  device: cuda           # torch device of the backend
+  batch_size: 16777216
+  worker_name: otedama-tpu
+  precompile: true       # build and warm the kernel before the engine starts
+  winner_depth: 0        # winner-table depth K (0 = the kernel default, 16)
+  pipeline_depth: 0      # launches per engine group (0 = the default, 3)
+  drain_timeout: 30.0    # abandon in-flight device calls past this on stop/switch
+  watchdog_multiplier: 8.0   # deadline = call-duration EWMA x this (<=0 = off)
+  watchdog_floor: 5.0        # minimum watchdog deadline, seconds
+  watchdog_first_deadline: 1800.0  # deadline while a call key has no EWMA
+  max_probes: 8          # failed reintegration probes before DEAD (0 = forever)
+
+stratum:
+  enabled: false
+  host: 0.0.0.0
+  port: 3333
+  initial_difficulty: 1.0
+  extranonce2_size: 4
+  max_clients: 10000
+  vardiff_target_seconds: 10.0
+
+pool:
+  enabled: false
+  payout_scheme: PPLNS
+  pplns_window: 10000
+  fee_percent: 1.0
+  minimum_payout: 100000  # atomic units; balances below it carry forward
+  payout_fee: 1000        # per-payout network fee charged to the worker
+  database: otedama.db    # SQLite path, ":memory:" or a postgres:// DSN
+
+work:
+  enabled: false       # originate jobs from a chain node (pool.chain_rpc_url,
+                       # or the in-process mock chain)
+  poll_seconds: 2.0    # template refresh cadence
+  payout_script: ""    # hex scriptPubKey for locally built coinbases
+  coinbase_tag: /otedama/  # scriptSig marker after the BIP34 height push
+
+validation:
+  enabled: false       # device-batched share validation (needs pool or p2p)
+  min_batch: 128       # batches under this many shares verify on the host
+  tripwire_rate: 0.05  # host-oracle sample per device batch (corruption trap)
+  quarantine_seconds: 60.0  # device-path timeout after an injected fault
+
+p2p:
+  enabled: false
+  port: 4333
+  max_peers: 32
+  share_difficulty: 1.0   # chain share difficulty floor (PoW-verified)
+  pplns_window: 8192      # PPLNS window in chain shares
+  max_reorg_depth: 96     # deepest fork rewind a node will perform
+  max_time_skew: 300.0    # reject shares dated further into the future
+  share_interval: 10.0    # intended share cadence, seconds
+  sync_page: 200          # shares per locator-sync page
+  chain_dir: ""           # durable chain store directory (empty = memory only)
+  chain_fsync_interval: 64     # max journal events per writer group-fsync
+  chain_segment_bytes: 8388608 # segment rotation threshold
+  chain_snapshot_interval: 8192  # shares archived between snapshots
+  chain_tail_shares: 16384     # in-memory best-chain tail (bounds RAM)
+  chain_durability: ack   # ack = a ledger awaits the journal watermark before
+                          # any verdict/db row; async = ack immediately,
+                          # crash loss bounded by the persist-lag export
+  chain_ring_max: 65536   # bounded commit->writer event ring
+
+api:
+  enabled: true
+  host: 127.0.0.1
+  port: 8080
+
+logging:
+  level: info
+"""

@@ -41,6 +41,8 @@ class AlgorithmManager:
     def __init__(self, preferred_backend: str = "auto", device: str = "cuda"):
         self.preferred_backend = preferred_backend
         self.device = device
+        # (algorithm, backend name) -> the last benchmark's result
+        self.results: dict[tuple[str, str], BenchmarkResult] = {}
 
     def backend_for(self, algorithm: str, kind: str | None = None, **kwargs):
         """Instantiate the backend for an algorithm (``auto`` = ``cuda``)."""
@@ -128,6 +130,14 @@ class AlgorithmManager:
         backend.search(jc, 1 << 20, budget_hashes)
         dt = time.monotonic() - t0
         result = BenchmarkResult(algorithm, backend.name, budget_hashes, dt)
+        self.results[(algorithm, result.backend)] = result
         log.info("benchmark %s/%s: %.0f H/s", algorithm, result.backend,
                  result.hashrate)
         return result
+
+    def snapshot(self) -> dict:
+        """The benchmarks run so far (the API's ``benchmarks`` provider)."""
+        return {
+            f"{a}/{b}": {"hashrate": r.hashrate, "hashes": r.hashes}
+            for (a, b), r in self.results.items()
+        }

@@ -19,6 +19,7 @@ class AlgorithmSpec:
     aliases: tuple[str, ...] = ()
     backends: tuple[str, ...] = ()      # implemented search backends
     memory_hard: bool = False           # scrypt family: V scratch per lane
+    chained: int = 1                    # chained hash rounds (x11 = 11)
     planning_hashrate: float = 0.0      # H/s per card, pre-measurement
 
     def implemented(self) -> bool:

@@ -18,7 +18,10 @@ in-flight calls have drained. Backends that search several extranonce2
 spaces a call (``en2_fanout > 1``: multi-device backends) come with
 ROADMAP A11 and are refused here. A device's hashrate is timed by when
 each call's answer was in hand, not when the loop drained it (see
-``_consume``).
+``_consume``). At a job change the new job's first call is dispatched
+before the old job's calls still in flight are drained (the reference
+drains first), so the card does not wait on the event loop between
+jobs.
 """
 
 from __future__ import annotations
@@ -863,9 +866,18 @@ class MiningEngine:
         if gen is None:
             gen = self._layout_gen
         dstats = self.stats.devices.setdefault(name, DeviceStats())
+        # a changed job's calls still in flight, as (job, pending): they
+        # drain once the next job's first call is on the stream behind
+        # them. Drained first (as the reference does), the card would
+        # idle from the last of them to the next job's first launch, for
+        # as long as the event loop took to get there
+        carried = None
         while not self._stop.is_set() and gen == self._layout_gen:
             job = self._job
             if job is None or job.is_expired(self.config.job_max_age):
+                if carried is not None:
+                    await self._drain_calls(name, *carried, dstats)
+                    carried = None
                 self._job_event.clear()
                 try:
                     await asyncio.wait_for(self._job_event.wait(), timeout=1.0)
@@ -937,6 +949,11 @@ class MiningEngine:
                                 backend.search, jcs[0], base, count,
                             )
                         pending.append((en2s, fut, t0, dl, token))
+                        if carried is not None:
+                            done_at = await self._drain_calls(
+                                name, *carried, dstats)
+                            carried = None
+                            t_last = max(t_last, done_at)
                         if len(pending) >= pend_cap:
                             p_en2s, p_fut, p_t0, p_dl, p_token = pending.pop(0)
                             results = await self._await_call(
@@ -954,25 +971,15 @@ class MiningEngine:
                             extranonce.roll()
                         continue
                     break  # job changed or stopping
-                # drain whatever is still in flight for this job: winners
-                # of an already-running launch are valid shares for it, so
-                # a call that failed is logged and skipped, and the calls
-                # behind it are still consumed; a hung one detaches the
-                # searcher
-                for i, (p_en2s, p_fut, p_t0, p_dl, p_token) in enumerate(
-                        pending):
-                    try:
-                        results = await self._await_call(
-                            name, p_fut, p_t0, p_dl
-                        )
-                    except DeviceHungError:
-                        pending = pending[i + 1:]
-                        raise
-                    except Exception:
-                        log.exception("in-flight search failed during drain")
-                        continue
-                    await self._consume(job, p_en2s, results, dstats, None,
-                                        p_token["done_at"])
+                if carried is not None:
+                    # the job changed again before its first call: the
+                    # older job's calls drain first
+                    await self._drain_calls(name, *carried, dstats)
+                    carried = None
+                if not self._stop.is_set() and gen == self._layout_gen:
+                    carried, pending = (job, pending), []
+                else:
+                    await self._drain_calls(name, job, pending, dstats)
             except Exception:
                 # hung OR crashed: nothing will await what this pipeline
                 # still has in flight — count it abandoned (the executor
@@ -980,8 +987,34 @@ class MiningEngine:
                 # the supervisor decide quarantine vs restart.
                 # Cancellation is NOT abandonment: stop()/switch drain
                 # those futures properly.
+                if carried is not None:
+                    pending = carried[1] + pending
                 self._abandon([p[1] for p in pending])
                 raise
+        if carried is not None:
+            await self._drain_calls(name, *carried, dstats)
+
+    async def _drain_calls(self, name: str, job: Job, pending: list,
+                           dstats) -> float:
+        """Consume a job's calls still in flight, in dispatch order:
+        winners of an already-running launch are valid shares for it, so
+        a call that failed is logged and skipped, and the calls behind it
+        are still consumed; a hung one abandons the calls behind it and
+        detaches the searcher (``DeviceHungError``). Returns when the last
+        call's answer was in hand (0.0 for none)."""
+        done_at = 0.0
+        for i, (p_en2s, p_fut, p_t0, p_dl, p_token) in enumerate(pending):
+            try:
+                results = await self._await_call(name, p_fut, p_t0, p_dl)
+            except DeviceHungError:
+                self._abandon([p[1] for p in pending[i + 1:]])
+                raise
+            except Exception:
+                log.exception("in-flight search failed during drain")
+                continue
+            done_at = p_token["done_at"]
+            await self._consume(job, p_en2s, results, dstats, None, done_at)
+        return done_at
 
     async def _consume(
         self, job: Job, en2s: list[bytes], results, dstats,

@@ -19,21 +19,22 @@ def smi(query: str) -> str:
 
 
 class Sampler:
-    """``clocks.sm`` and ``power.draw`` every ``period`` seconds while the
-    ``with`` block runs."""
+    """``clocks.sm``, ``power.draw`` and ``temperature.gpu`` every
+    ``period`` seconds while the ``with`` block runs."""
 
     def __init__(self, period: float = 0.2):
-        self.rows: list[tuple[float, float]] = []
+        self.rows: list[tuple[float, float, float]] = []
         self._period = period
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _run(self) -> None:
         while not self._stop.is_set():
-            row = smi("clocks.sm,power.draw").split(",")
+            row = smi("clocks.sm,power.draw,temperature.gpu").split(",")
             try:
                 self.rows.append((float(row[0].split()[0]),
-                                  float(row[1].split()[0])))
+                                  float(row[1].split()[0]),
+                                  float(row[2].split()[0])))
             except (ValueError, IndexError):
                 pass
             self._stop.wait(self._period)
@@ -51,7 +52,9 @@ class Sampler:
             return "clocks.sm and power.draw: no samples"
         mhz = [r[0] for r in self.rows]
         watts = [r[1] for r in self.rows]
+        celsius = [r[2] for r in self.rows]
         return (f"{len(self.rows)} samples: clocks.sm median "
                 f"{statistics.median(mhz):.0f} MHz (min {min(mhz):.0f}, max "
                 f"{max(mhz):.0f}), power.draw median {statistics.median(watts):.1f}"
-                f" W (max {max(watts):.1f})")
+                f" W (max {max(watts):.1f}), temperature.gpu median "
+                f"{statistics.median(celsius):.0f} C (max {max(celsius):.0f})")

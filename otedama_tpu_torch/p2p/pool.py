@@ -18,8 +18,7 @@ Where the port differs from the reference: when the validator raises,
 exception as its verdict and is neither linked nor relayed (counted in
 ``stats["verify_failures"]``); sync fetches the shares again later. The
 port's ``ValidationBackend`` raises only on a real kernel fault, and a
-host re-verification would hide a faulty verify kernel. The chain store
-is not ported (``ShareChain`` refuses one).
+host re-verification would hide a faulty verify kernel.
 """
 
 from __future__ import annotations
@@ -64,7 +63,10 @@ class P2PPool:
     def __init__(self, config: NodeConfig | None = None,
                  params: ChainParams | None = None, store=None):
         self.node = P2PNode(config)
-        # a durable chain store is refused by ShareChain, by name
+        # optional durable chain store (p2p/chainstore.py): callers run
+        # ``chain.load()`` BEFORE start() so the node boots from its
+        # segments+snapshot and locator sync only covers what a crash
+        # cut off past the last durable record
         self.chain = ShareChain(params, store=store)
         self.blocks_seen: list[dict] = []
         self.jobs_seen: dict[str, dict] = {}
@@ -103,6 +105,13 @@ class P2PPool:
 
     async def stop(self) -> None:
         await self.node.stop()
+        if self.chain.store is not None:
+            # final fsync + handle close; a hard kill skipping this is
+            # exactly the crash load() replays
+            try:
+                self.chain.store.close()
+            except Exception:
+                log.exception("chain store close failed")
 
     def sever(self) -> None:
         """Cut this node off the overlay (region loss): close every peer
@@ -303,7 +312,7 @@ class P2PPool:
             self._verifying.discard(sid)
         status = self.chain.connect(share)
         if status not in ("accepted", "orphan"):
-            return  # duplicate
+            return  # duplicate, or stale (extends an archived ancestor)
         self.stats["shares_accepted"] += 1
         self._maybe_prune()
         if status == "orphan":
@@ -390,7 +399,7 @@ class P2PPool:
                 continue
             status = self.chain.connect(share)
             if status not in ("accepted", "orphan"):
-                continue  # duplicate: never re-flooded
+                continue  # duplicate or stale: never re-flooded
             self.stats["shares_accepted"] += 1
             saw_orphan = saw_orphan or status == "orphan"
             verified.append(share)
@@ -537,9 +546,14 @@ class P2PPool:
 
     def _maybe_prune(self) -> None:
         """Periodic housekeeping on the connect path: side branches past
-        the reorg horizon are dropped (``ShareChain.compact``).
-        Delta-gated, not modulo: orphan adoption and sync pages link
-        several shares per call and would step over exact multiples."""
+        the reorg horizon are dropped, and — with a chain store — the
+        settled prefix is STAGED out of memory and snapshots are queued
+        (``ShareChain.compact``). All disk work (archive appends, the
+        O(tail) snapshot rewrite, fsyncs) happens on the store's writer
+        thread; this call is dict work only, so the gossip pump never
+        stalls behind persistence. Delta-gated, not modulo: orphan
+        adoption and sync pages link several shares per call and would
+        step over exact multiples."""
         if self.chain.shares_connected - self._last_prune >= 256:
             self._last_prune = self.chain.shares_connected
             self.chain.compact()

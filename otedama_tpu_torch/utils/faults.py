@@ -124,6 +124,15 @@ REGISTRY: dict[str, FaultPoint] = _reg(
                "share id prefix (12 hex)", STEP),
     FaultPoint("p2p.sync", "p2p/pool.py locator sync",
                "peer id prefix (12 hex)", STEP),
+    FaultPoint("chain.persist",
+               "p2p/chainstore.py journal/archive appends (writer thread)",
+               "journal|archive", STEP),
+    FaultPoint("chain.snapshot",
+               "p2p/chainstore.py write_snapshot (writer thread)",
+               "", STEP),
+    FaultPoint("chain.fsync",
+               "p2p/chainstore.py writer thread, per journal group-fsync",
+               "", POINT),
     FaultPoint("db.execute", "db/database.py execute/executemany",
                "", POINT),
     FaultPoint("ledger.flush",

@@ -197,3 +197,68 @@ async def test_a_slow_roll_does_not_spike_the_hashrate(monkeypatch):
     port, ref = peaks
     assert 0 < port <= 1.2 * nominal
     assert ref > 5 * nominal
+
+
+class HeldStub:
+    """Each call waits for its own release; the header's ntime field of
+    every call is recorded in dispatch order."""
+
+    name = "stub"
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.releases: list[threading.Event] = []
+        self.ntimes: list[bytes] = []
+
+    def search(self, jc, base, count):
+        release = threading.Event()
+        with self.lock:
+            self.releases.append(release)
+            self.ntimes.append(jc.header76[68:72])
+        assert release.wait(30.0), "the test never released the call"
+        return search.SearchResult([], count, 0xFFFFFFFF)
+
+
+@pytest.mark.asyncio
+async def test_a_new_job_dispatches_before_the_old_calls_drain():
+    """ROADMAP Queue C 34: at a job change the port dispatches the new
+    job's first call before it drains the old job's calls still in
+    flight, so the card's stream never runs dry waiting for the event
+    loop (the reference drains first). The drained call is still
+    consumed, and nothing restarts."""
+    stub = HeldStub()
+    engine = MiningEngine({"stub": stub}, config=EngineConfig(
+        batch_size=BATCH, auto_batch=False, pipeline_depth=2,
+        searcher_restart_backoff=0.02))
+    first, second = (_job_fields("first", 1_700_000_000),
+                     _job_fields("second", 1_700_000_060))
+    ntime_second = (1_700_000_060).to_bytes(4, "little")
+
+    async def until(cond, what):
+        deadline = time.monotonic() + 10.0
+        while not cond():
+            assert time.monotonic() < deadline, what
+            await asyncio.sleep(0.005)
+
+    await engine.start()
+    try:
+        engine.set_job(Job(**first))
+        await until(lambda: len(stub.releases) == 2, "two calls in flight")
+        stub.releases[0].set()
+        await until(lambda: len(stub.releases) == 3, "the third call")
+        engine.set_job(Job(**second))
+        stub.releases[1].set()
+        # the third call (the first job's) is still held, and the second
+        # job's first call is already on its way
+        await until(lambda: ntime_second in stub.ntimes,
+                    "no call of the new job while the old one is held")
+        assert not stub.releases[2].is_set()
+        assert stub.ntimes[:3] == [(1_700_000_000).to_bytes(4, "little")] * 3
+        for release in stub.releases:
+            release.set()
+        await until(lambda: engine.stats.hashes >= 4 * BATCH, "hashes")
+    finally:
+        for release in stub.releases:
+            release.set()
+        await engine.stop()
+    assert engine.supervisors["stub"].searcher_restarts == 0

@@ -867,9 +867,8 @@ async def test_app_p2p_mode_runs_the_chain(m):
 @PACKAGES
 @pytest.mark.asyncio
 async def test_snapshot_and_metrics_export(m):
-    """The pool's snapshot; the reference renders it through its API
-    metrics (the port's API tier is ROADMAP A6c), so the port's snapshot
-    is held to the reference's keys."""
+    """The pool's snapshot, rendered through each package's own API
+    metrics; the port's snapshot is held to the reference's keys."""
     p = params(m)
     a, b = m.pool.P2PPool(_pin(m, 10), p), m.pool.P2PPool(_pin(m, 11), p)
     net = m.memnet.MemoryNetwork()
@@ -882,18 +881,14 @@ async def test_snapshot_and_metrics_export(m):
         assert snap["chain"]["tip"] == a.chain.tip.hex()
         assert snap["chain"]["tip_work"] > 0
         assert snap["shares_accepted"] == 1
-        if m is REF:
-            from otedama_tpu.api.metrics import MetricsRegistry
-            from otedama_tpu.api.server import ApiServer
-
-            api = ApiServer.__new__(ApiServer)   # registry-only use
-            api.registry = MetricsRegistry()
-            api.sync_p2p_metrics(snap)
-            text = api.registry.render()
-            assert "otedama_p2p_chain_height 1" in text
-            assert "otedama_p2p_shares_connected_total 1" in text
-            assert "otedama_p2p_tip_work" in text
-        else:
+        server = importlib.import_module(f"{m.root}.api.server")
+        api = server.ApiServer()
+        api.sync_p2p_metrics(snap)
+        text = api.registry.render()
+        assert "otedama_p2p_chain_height 1" in text
+        assert "otedama_p2p_shares_connected_total 1" in text
+        assert "otedama_p2p_tip_work" in text
+        if m is PORT:
             ref = REF.pool.P2PPool(_pin(REF, 10), params(REF))
             assert set(snap) == set(ref.snapshot())
             assert set(snap["chain"]) == set(ref.snapshot()["chain"])
@@ -1094,13 +1089,25 @@ async def test_a_raising_validator_is_a_counted_fallback():
     assert results[1] == (0, {}, 0, 3, 0, 0)
 
 
-def test_port_refuses_the_chain_store_by_name():
-    with pytest.raises(ValueError, match="A6c"):
-        PORT.sc.ShareChain(store=object())
-    with pytest.raises(ValueError, match="A6c"):
-        PORT.pool.P2PPool(store=object())
-    with pytest.raises(ValueError, match="A6c"):
-        PORT.sc.ShareChain().load()
+def test_port_refuses_the_chain_store_by_name(tmp_path):
+    """The port once refused a chain store by name; it now carries one
+    (``p2p/chainstore.py``). A ``ShareChain`` and a ``P2PPool`` take a
+    ``ChainStore``, and ``load()`` refuses as the reference's does: with
+    no store attached, and on a chain that is not empty."""
+    from otedama_tpu_torch.p2p.chainstore import ChainStore, ChainStoreConfig
+
+    for m in (REF, PORT):
+        with pytest.raises(ValueError, match="no chain store attached"):
+            m.sc.ShareChain().load()
+    store = ChainStore(ChainStoreConfig(path=str(tmp_path / "chain")))
+    pool = PORT.pool.P2PPool(_pin(PORT, 12), params(PORT), store=store)
+    assert pool.chain.store is store
+    assert pool.chain.load()["source"] == "empty"
+    for share in mine_chain(PORT, 3, "w", ts_ms=TS_MS):
+        assert pool.chain.connect(share) == "accepted"
+    with pytest.raises(RuntimeError, match="empty chain"):
+        pool.chain.load()
+    store.close()
 
 
 def test_cli_p2p_mine_raises_without_a_card(monkeypatch):

@@ -10,6 +10,7 @@ refused by name.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import time
 
 import pytest
@@ -208,7 +209,6 @@ def test_cli_pool_mine_with_auto_raises_without_a_card(monkeypatch):
     ("stratum.v2_enabled", True, "A14"),
     ("stratum.fleet_listen", "127.0.0.1:0", "A14"),
     ("stratum.fleet_ledger", "127.0.0.1:9", "A14"),
-    ("p2p.chain_dir", "/var/lib/otedama/chain", "A6c"),
     ("settlement.enabled", True, "A13"),
     ("region.enabled", True, "A13"),
 ])
@@ -222,3 +222,36 @@ def test_settings_of_later_items_are_refused_by_name(setting, value, item):
     env = {f"OTEDAMA_{section.upper()}_{field.upper()}": str(value)}
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         load_config(None, environ=env)
+
+
+@pytest.mark.parametrize("setting, value, ok", [
+    ("p2p.chain_dir", "/var/lib/otedama/chain", True),
+    ("p2p.chain_fsync_interval", 0, False),
+    ("p2p.chain_segment_bytes", 1024, False),
+    ("p2p.chain_snapshot_interval", 0, False),
+    ("p2p.chain_tail_shares", 95, False),
+    ("p2p.chain_durability", "sync", False),
+    ("p2p.chain_durability", "async", True),
+    ("p2p.chain_ring_max", 63, False),
+])
+def test_chain_store_settings_validate_as_the_reference(setting, value, ok):
+    """``p2p.chain_dir`` and the store's ``chain_*`` knobs, once refused
+    by name, are accepted and validated as the reference validates them,
+    from the same defaults."""
+    from otedama_tpu.config.schema import AppConfig as RefAppConfig
+    from otedama_tpu.config.schema import validate_config as ref_validate
+
+    section, field = setting.split(".")
+    knobs = [f.name for f in dataclasses.fields(type(AppConfig().p2p))
+             if f.name.startswith("chain_")]
+    assert len(knobs) == 7 and [getattr(AppConfig().p2p, k) for k in knobs] \
+        == [getattr(RefAppConfig().p2p, k) for k in knobs]
+    errors = []
+    for make, validate in ((AppConfig, validate_config),
+                           (RefAppConfig, ref_validate)):
+        cfg = make()
+        setattr(getattr(cfg, section), field, value)
+        errors.append(validate(cfg))
+    assert errors[0] == errors[1]
+    assert (errors[0] == []) == ok
+    assert ok or field in errors[0][0]

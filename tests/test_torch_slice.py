@@ -197,7 +197,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "otedama_tpu_torch.p2p.node",
             "otedama_tpu_torch.p2p.memnet",
             "otedama_tpu_torch.p2p.sharechain",
-            "otedama_tpu_torch.p2p.pool"} <= set(modules)
+            "otedama_tpu_torch.p2p.pool",
+            "otedama_tpu_torch.p2p.chainstore",
+            "otedama_tpu_torch.utils.logging_setup",
+            "otedama_tpu_torch.security.auth",
+            "otedama_tpu_torch.api.metrics",
+            "otedama_tpu_torch.api.http",
+            "otedama_tpu_torch.api.server"} <= set(modules)
+    # the API serves the port's own copies of the web pages
+    pages = ("static/index.html", "admin/index.html", "admin/login.html")
+    assert all((REPO / "otedama_tpu_torch" / "web" / p).is_file()
+               for p in pages)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

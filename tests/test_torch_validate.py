@@ -51,7 +51,6 @@ from otedama_tpu_torch.kernels import sha256_torch as st
 from otedama_tpu_torch.kernels import target as tgt
 from otedama_tpu_torch.pool.blockchain import MockChainClient
 from otedama_tpu_torch.pool.manager import PoolConfig, PoolManager
-from otedama_tpu_torch.p2p.sharechain import ShareChain
 from otedama_tpu_torch.pool.payouts import PayoutConfig, PayoutScheme
 from otedama_tpu_torch.runtime import validate
 from otedama_tpu_torch.stratum.server import AcceptedShare
@@ -366,8 +365,6 @@ def test_port_refuses_what_it_does_not_carry_yet():
         pow_host.pow_digest(bytes(80), "x11")
     with pytest.raises(ValueError, match="A10"):
         pow_host.pow_digest(bytes(80), "ethash")
-    with pytest.raises(ValueError, match="A6c"):
-        ShareChain(store=object())
 
 
 # -- the pool ledger ----------------------------------------------------------

@@ -2,17 +2,19 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: ``python3 chip_smoke.py``.
 
 Builds the port's kernels from the sources in this checkout (one nvcc per
-source, started together), drives the solo sha256d and scrypt main paths,
-the pool ledger's share validation, the supervised engine, warm
-algorithm switching, the chain RPC client, the stratum pool and client
-(pool mode with local mining, vardiff, upstream failover, a scrypt pool)
-and the P2P share-chain pool with PostgreSQL books through the entry
-points a user calls, and checks every phase; any failure exits non-zero.
+source, started together), drives the solo sha256d, scrypt and x11 main
+paths, the pool ledger's share validation (sha256d, scrypt, x11), the
+supervised engine, warm algorithm switching, the chain RPC client, the
+stratum pool and client (pool mode with local mining, vardiff, upstream
+failover, a scrypt pool) and the P2P share-chain pool with PostgreSQL
+books through the entry points a user calls, and checks every phase; any
+failure exits non-zero.
 Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    registers and spills of the hot kernels (``-Xptxas -v``) and their hot
-   loops' SASS by integer pipe (``cuobjdump -sass``);
+   loops' SASS by integer pipe (``cuobjdump -sass``); B6's instructions a
+   lane by stage and pipe, from the SASS of its counting build;
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
    (few winners, target at a lane's hash and +-1, ragged counts — 1, 3,
@@ -160,7 +162,37 @@ Phases:
 27. a scrypt share chain: phase 26's app with ``mining.algorithm =
    "scrypt"`` and mining off catches up 1,200 scrypt shares from one node
    in 6 pages, each one call of the scrypt verify path around B5; every
-   verdict equals hashlib.scrypt's.
+   verdict equals hashlib.scrypt's;
+28. the durable ``cli p2p --mine`` with the API, SIGKILLed and cold-booted
+   (``durable_phase``);
+29. x11 known answer: kernel B6's digests of the Dash genesis header and
+   three fixed headers (through its verify kernel, each against its
+   digest and one below, and its search kernel on the header's own nonce)
+   equal the JAX package's chain, written here as constants, and the
+   port's host chain (not Dash's network hash: the chain is uncertified);
+30. B6 against the plain PyTorch version on the card, buffer for buffer:
+   few winners, a target at a lane's digest and +-1, ragged counts (1,
+   37, one past a block, 2^20 + 77), a window that wraps 2^32, an empty
+   window, table overflow, each of the five shavite counter orders,
+   ``X11CudaBackend``'s bisect, the main path's launch; the verify kernel
+   on Byzantine rows, an overflow and a count short of the rows;
+31. solo x11: ``Application`` with ``mining.algorithm = "x11"`` on the card
+   for 20 s against a mock chain whose target gives ~2 shares a second,
+   then for 12 s at ~32 a second (a pool's share rate: most groups of
+   launches hold winners to re-check): every share re-hashed through the
+   host chain, the mock chain's refusals (it checks blocks by sha256d)
+   counted, B6 launched and the plain version not, the engine's rate;
+32. x11 at the pool ledger: 8 flushes of 1,024 x11 shares (one in ~256
+   forged) through ``PoolManager.on_share_batch`` and B6's verify kernel:
+   every verdict equals the host chain's, the books hold the honest
+   shares, the rails stay quiet, one launch a flush;
+33. B6's times (CUDA events, median of rounds) at 2^20, 2^22 and 2^24
+   lanes and a 1,024-share verify call beside the bound (from the
+   instructions a lane executes, counted in phase 1 from the SASS of
+   B6's counting build), phase 31's steady rates against B6's, the SM
+   clock and
+   power sampled; a sha256d -> x11 -> sha256d warm switch and an x11 probe
+   verified against the host chain.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -206,6 +238,10 @@ INT32_LANES_PER_SM = 128
 PROFILE_ATTEMPTS = 6
 SCRYPT_NBITS = 0x1F00FFFF     # about one scrypt share per 2^16 hashes
 SCRYPT_WINDOW_S = 20.0        # the scrypt main path's fixed window
+
+
+# work behind the phases: B6's counting build (``x11_cuda.chain_instructions``)
+BACKGROUND = concurrent.futures.ThreadPoolExecutor(1)
 
 
 class SmokeFailure(Exception):
@@ -1539,7 +1575,7 @@ def smoke_job(job_id: str, algorithm: str = "sha256d",
 
 def check_shares(shares, jobs: dict) -> int:
     """Every share re-hashed with hashlib (sha256d or scrypt, by its job's
-    algorithm): the digest the engine reported, at or under its job's
+    algorithm; x11 through the port's host chain): the digest the engine reported, at or under its job's
     share target, and no (job, extranonce2, nonce) twice. Returns the
     count."""
     from otedama_tpu_torch.engine.jobs import header_from_share
@@ -1553,6 +1589,8 @@ def check_shares(shares, jobs: dict) -> int:
         header = header_from_share(job, s.extranonce2, s.ntime, s.nonce_word)
         if job.algorithm == "scrypt":
             value = scrypt_value(header)
+        elif job.algorithm == "x11":
+            value = x11_value(header)
         else:
             value = int.from_bytes(
                 hashlib.sha256(hashlib.sha256(header).digest()).digest(),
@@ -2469,9 +2507,10 @@ def fleet_phase(dev, card: str, kernel_rate: float) -> int:
 
 
 class CountingCuda:
-    """``CudaBackend`` with each collected window recorded: the buffer's
+    """``CudaBackend`` with each read-back window recorded: the buffer's
     count word (the window's true winner count) beside the winners the
-    backend returns, bisected or not."""
+    backend found there, bisected or not, and the winners its host
+    re-check dropped (it logs each as an error)."""
 
     @staticmethod
     def make(dev):
@@ -2481,13 +2520,15 @@ class CountingCuda:
         class Counting(CudaBackend):
             windows: list = []
 
-            def _collect(self, jc, base, count, buf):
-                n = int(sc.unpack_winner_buffer(buf, self.k)[2])
-                result = super()._collect(jc, base, count, buf)
-                self.windows.append((n, len(result.winners), count))
-                return result
+            def _found(self, jc, base, count, buf, k):
+                n = int(sc.unpack_winner_buffer(buf, k)[2])
+                words, min_hash = super()._found(jc, base, count, buf, k)
+                self.windows.append((n, len(words), count))
+                return words, min_hash
 
-        backend = Counting(dev)
+        # a fixed table of the default depth, so that windows at 1/64
+        # overflow it and bisect (a table sized from the target would not)
+        backend = Counting(dev, winner_depth=sc.K_WINNERS)
         backend.windows = []
         return backend
 
@@ -2559,16 +2600,22 @@ def vardiff_phase(dev, card: str) -> int:
 
     sc.launches.reset()
     st.calls.reset()
-    asyncio.run(run23())
+    dropped = ErrorCount()
+    logging.getLogger("otedama.runtime.search").addHandler(dropped)
+    try:
+        asyncio.run(run23())
+    finally:
+        logging.getLogger("otedama.runtime.search").removeHandler(dropped)
     launches, plain = sc.launches.value, st.calls.value
     check(launches > 0 and plain == 0,
           f"B1 launches {launches}, plain-version calls {plain}")
     windows = backend.windows
     over = [w for w in windows if w[0] > backend.k]
     check(over, "no launch overflowed its winner table at difficulty 1/64")
-    check(all(n == got for n, got, _ in windows),
+    check(all(n == got for n, got, _ in windows) and dropped.n == 0,
           "a window's count word differs from the winners returned: "
-          f"{[w for w in windows if w[0] != w[1]][:4]}")
+          f"{[w for w in windows if w[0] != w[1]][:4]}, {dropped.n} "
+          "dropped by the host re-check")
     # the climb: at most x4 a retarget, and it climbs
     ds = [VARDIFF_START] + [d for _, d in retargets]
     check(len(ds) >= 3 and ds[-1] > VARDIFF_START, f"no climb: {ds}")
@@ -4142,6 +4189,597 @@ def p2p_phases(dev, card: str, kernel_rate: float) -> dict:
     return dict(sha256d=p2p_phase(dev, card, kernel_rate),
                 scrypt=scrypt_p2p_phase(dev, card))
 
+# B6's known answers: digests of the JAX package's x11 chain (computed on
+# the CPU with otedama_tpu.kernels.x11.x11_digest), which is not Dash's
+# canonical x11 (its simd512 is an uncertified reconstruction)
+X11_KNOWN = (
+    ("the Dash genesis header", None,
+     "aeae4827bdd6ab7ed8f9e1951b8d1b48f139b9e433de0f65edfe9eafaa85b808"),
+    ("80 zero bytes", bytes(80),
+     "af8b0ece21801d254651e014cba9ed6b663219ad3631627fd7040d7ade245850"),
+    ("bytes 0..79", bytes(range(80)),
+     "3373adcc639371de27e08b57dbf7c3137ccfbbf8f43f8d180810d8e1ec34af52"),
+    ("80 bytes 0xff", b"\xff" * 80,
+     "2e6e3f3d210093815da0675fa512ad3a5f11e7a883ea87196e842aafadedb62d"),
+)
+# the solo x11 main path's windows: (shares a second the mock chain's
+# target is set for, seconds); the second at the rate of a pool's share
+# target, where most groups of launches hold winners to re-check
+X11_SOLO_WINDOWS = ((2.0, 20.0), (32.0, 12.0))
+X11_FLUSHES = 8              # 1,024-share x11 flushes through the ledger
+
+
+def x11_value(header: bytes) -> int:
+    """x11 of an 80-byte header through the port's host chain (numpy)."""
+    from otedama_tpu_torch.kernels.x11 import x11_digest
+
+    return int.from_bytes(x11_digest(header), "little")
+
+
+def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
+    """Phases 29-33 (x11, kernel B6); ``counts``: the instructions a lane
+    executes (``x11_cuda.chain_instructions()``). Returns the records of
+    its search and verify kernels."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.db import connect_database
+    from otedama_tpu_torch.engine.algo_manager import AlgorithmManager
+    from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels import x11 as host
+    from otedama_tpu_torch.kernels import x11_cuda as xc
+    from otedama_tpu_torch.kernels import x11_torch as xt
+    from otedama_tpu_torch.kernels.card import Sampler
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.pool.manager import PoolManager
+    from otedama_tpu_torch.runtime import supervision
+    from otedama_tpu_torch.runtime.search import JobConstants, X11CudaBackend
+    from otedama_tpu_torch.runtime.validate import ValidationBackend
+    from otedama_tpu_torch.stratum.server import AcceptedShare
+
+    rng = np.random.default_rng(SEED + 11)
+    full = 0xFFFFFFFF
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err = {"search": 0, "verify": 0}
+
+    def limbs_of(v: int) -> np.ndarray:
+        return np.array([(v >> (224 - 32 * j)) & full for j in range(8)],
+                        dtype=np.uint32)
+
+    def host_buf(t):
+        torch.cuda.synchronize(dev)
+        return t.cpu().numpy().view(np.uint32)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+
+    def equal_buffers(kind, name, a, b, k):
+        """every word when n <= k, else the count and the min"""
+        n = int(b[2 * k])
+        sel = slice(None) if n <= k else np.r_[2 * k, 2 * k + 2]
+        diff = np.abs(a[sel].astype(np.int64) - b[sel].astype(np.int64))
+        check(not diff.any(), f"{name}: kernel {a.tolist()[:40]} != plain "
+              f"{b.tolist()[:40]}")
+        max_err[kind] = max(max_err[kind], int(diff.max()))
+        return n
+
+    def search_vs_plain(name, prefix, base, last, limbs, batch, k=16,
+                        order=None):
+        order = order or xt.cnt_variant_order()
+        a = host_buf(xc.x11_search(prefix, base, last, limbs, batch=batch,
+                                   k=k, device=dev, cnt_order=order))
+        t0 = time.monotonic()
+        b = host_buf(xt.x11_search_buffer(prefix, base, last, limbs,
+                                          batch=batch, k=k, device=dev,
+                                          cnt_order=order, chunk=1 << 20))
+        plain_s = time.monotonic() - t0
+        n = equal_buffers("search", name, a, b, k)
+        print(f"   {name}: {batch} lanes, last {last}, k={k}, n={n}"
+              f"{' (overflow: count and min)' if n > k else ''}, min_h0="
+              f"{b[2 * k + 2]:#010x} equal", flush=True)
+        return b, plain_s
+
+    def verify_vs_plain(name, words, limbs, count, k):
+        w, t = on_card(words), on_card(limbs)
+        a = host_buf(xc.x11_verify(w, t, count, k=k))
+        t0 = time.monotonic()
+        b = host_buf(xt.x11_verify_step(w, t, count - 1, k=k))
+        plain_s = time.monotonic() - t0
+        n = equal_buffers("verify", name, a, b, k)
+        print(f"   {name}: {count} of {len(words)} rows, k={k}, n={n}"
+              f"{' (overflow: count and min)' if n > k else ''} equal",
+              flush=True)
+        return b, plain_s
+
+    # -- 29. known answer ------------------------------------------------------
+    phase("29 B6 known answer: the x11 chain's digests of the Dash genesis "
+          "header and three fixed headers")
+    headers = [h if h is not None else host.DASH_GENESIS_HEADER
+               for _, h, _ in X11_KNOWN]
+    values = []
+    for (name, _, want), h in zip(X11_KNOWN, headers):
+        got = host.x11_digest(h).hex()
+        check(got == want, f"{name}: the port's host chain gives {got}, "
+              f"the JAX package's {want}")
+        values.append(int.from_bytes(bytes.fromhex(want), "little"))
+    # the verify kernel: each header twice, against its digest (passes) and
+    # one below it (fails): only the exact 256-bit value does both
+    rows = [h for h in headers for _ in (0, 1)]
+    tl = np.stack([limbs_of(v - d) for v in values for d in (0, 1)])
+    words = xt.headers_to_words(rows)
+    b, _ = verify_vs_plain("verify: digest and digest - 1 as targets", words,
+                           tl, len(rows), 8)
+    check(int(b[16]) == 4 and b[:4].tolist() == [1, 3, 5, 7]
+          and b[8:12].tolist() == [v >> 224 for v in values],
+          f"verify known answer: {b.tolist()}")
+    # the search kernel: the header's own nonce word as the base of a
+    # one-lane window
+    for (name, _, want), h, v in zip(X11_KNOWN, headers, values):
+        base = int.from_bytes(h[76:80], "big")
+        for delta, expect in ((0, 1), (1, 0)):
+            a = host_buf(xc.x11_search(h[:76], base, 0, limbs_of(v - delta),
+                                       batch=1, k=4, device=dev))
+            check(int(a[8]) == expect and (not expect or (
+                int(a[0]) == 0 and int(a[4]) == v >> 224)),
+                  f"search known answer {name} (target - {delta}): "
+                  f"{a.tolist()}")
+        print(f"   {name}: {want} (B6 verify and search, the port's host "
+              "chain)", flush=True)
+
+    # -- 30. B6 against the plain version -----------------------------------
+    phase("30 B6 vs x11_torch on the card, buffer for buffer")
+    prefix = rng.integers(0, 256, 76, dtype=np.uint8).tobytes()
+    few = limbs_of((1 << 238) - 1)             # ~4 winners in 2^20 lanes
+    search_vs_plain("few winners", prefix, int(rng.integers(1 << 32)),
+                    (1 << 20) - 1, few, 1 << 20)
+    # a target at the best lane's digest and +-1: decided on the low limbs
+    span, base = 1 << 12, int(rng.integers(1 << 32))
+    hw = xt.search_words(prefix, base, span, dev)
+    lanes = torch.stack(xt.digest_limbs(xt.chain_words(hw)), 1).cpu().numpy()
+    best_lane = int(np.lexsort(lanes.T[::-1])[0])
+    best = tgt.limbs_to_target(lanes[best_lane])
+    for delta, expect in ((0, 1), (-1, 0), (1, 1)):
+        b, _ = search_vs_plain(f"target = best lane's digest {delta:+d}",
+                               prefix, base, span - 1, limbs_of(best + delta),
+                               span)
+        check(int(b[32]) == expect and (not expect or int(b[0]) == best_lane),
+              f"target at the digest {delta:+d}: {b.tolist()}")
+    # a target for a few winners at each count
+    for count, top in ((1, 255), (37, 253), (xc.THREADS + 1, 251),
+                       ((1 << 20) + 77, 238)):
+        batch = max(count, 1 << 12)
+        search_vs_plain(f"count {count}", prefix, int(rng.integers(1 << 32)),
+                        count - 1, limbs_of(1 << top), batch)
+    search_vs_plain("the window wraps 2^32", prefix, (1 << 32) - 1234,
+                    (1 << 14) - 1, limbs_of(1 << 246), 1 << 14)
+    b, _ = search_vs_plain("an empty window", prefix, 5, -1, limbs_of(full),
+                           4096)
+    check(int(b[32]) == 0 and int(b[34]) == full, "empty window")
+    b, _ = search_vs_plain("table overflow n > k", prefix, 7, (1 << 14) - 1,
+                           limbs_of(1 << 250), 1 << 14)
+    check(int(b[32]) > 16, "the overflow case did not overflow")
+    for variant in host.shavite.CNT_VARIANTS:
+        search_vs_plain(f"shavite counter order {variant!r}", prefix,
+                        int(rng.integers(1 << 32)), (1 << 12) - 1,
+                        limbs_of(1 << 250), 1 << 12,
+                        order=xt.cnt_variant_order(variant))
+    # X11CudaBackend's bisecting rescan against every winner of the window
+    backend = X11CudaBackend(dev, winner_depth=16)
+    jc = JobConstants.from_header_prefix(prefix, (1 << 250) - 1)
+    res = backend.search(jc, 12345, 3000)
+    pb = host_buf(xt.x11_search_buffer(prefix, 12345, 2999, jc.limbs,
+                                       batch=3000, k=3000, device=dev))
+    check(int(pb[6000]) > 16, "the bisect case did not overflow")
+    check([w.nonce_word for w in res.winners]
+          == [(12345 + int(o)) & full for o in pb[:int(pb[6000])]],
+          "X11CudaBackend's bisect winners != the plain version's")
+    check(res.best_hash_hi == int(pb[6002]) and res.hashes == 3000,
+          "bisect telemetry")
+    backend.close()
+    print(f"   X11CudaBackend bisect: {int(pb[6000])} winners in 3000 lanes "
+          "equal, each re-derived through the host chain", flush=True)
+    # the main path's launch: X11_CUDA_BATCH lanes, ~4 winners
+    from otedama_tpu_torch.runtime.search import X11_CUDA_BATCH
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    host_buf(xc.x11_search(prefix, 99, X11_CUDA_BATCH - 1,
+                           limbs_of((1 << 236) - 1), batch=X11_CUDA_BATCH,
+                           k=16, device=dev))
+    first_ms = (time.monotonic() - t0) * 1e3
+    _, plain_main_s = search_vs_plain(
+        f"the main path's launch ({X11_CUDA_BATCH} lanes)", prefix, 99,
+        X11_CUDA_BATCH - 1, limbs_of((1 << 236) - 1), X11_CUDA_BATCH)
+    print(f"   main launch: kernel {first_ms:.1f} ms (a call, host clock), "
+          f"plain version {plain_main_s:.1f} s", flush=True)
+    # the verify kernel: Byzantine rows, an overflow, a count short of rows
+    hv = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
+    vl = limbs_of_digests(host.x11_digest_batch(hv).tobytes())
+    pattern = np.where(rng.random(1024) < 1 / 9, -1,
+                       rng.integers(0, 2, 1024))
+    tl = vl.copy()
+    for delta in (-1, 1):
+        tl[pattern == delta] = limbs_step(vl[pattern == delta], delta)
+    b, plain_verify_s = verify_vs_plain("Byzantine rows (one in 9)",
+                                        xt.headers_to_words(hv), tl, 1024, 256)
+    check(b[:int(b[512])].tolist() == np.nonzero(pattern == -1)[0].tolist(),
+          "verify: failures != the forged rows")
+    over = np.where(rng.random(1024) < 1 / 3, -1, 0)
+    tl2 = vl.copy()
+    tl2[over == -1] = limbs_step(vl[over == -1], -1)
+    b, _ = verify_vs_plain("k overflow", xt.headers_to_words(hv), tl2, 1024,
+                           16)
+    check(int(b[32]) > 16, "the verify overflow case did not overflow")
+    verify_vs_plain("count short of the rows", xt.headers_to_words(hv), tl,
+                    1000, 256)
+    torch.cuda.empty_cache()
+
+    # -- 31. main path (a): solo x11 -------------------------------------------
+    from otedama_tpu_torch.engine.jobs import header_from_share
+
+    def solo_window(shares_per_s: float, window_s: float):
+        """``Application`` solo on x11 for ``window_s`` against a mock chain
+        whose target makes about ``shares_per_s`` shares; returns (B6
+        launches, the steady rate)."""
+        rate_guess = X11_CUDA_BATCH / first_ms * 1e3
+        chain_target = (1 << 256) // int(rate_guess / shares_per_s)
+        nbits = tgt.target_to_bits(chain_target)
+        chain_target = tgt.bits_to_target(nbits)
+        phase(f"31 main path: solo x11 Application on the card for "
+              f"{window_s:.0f} s, mock chain nbits {nbits:#010x} (about "
+              f"{shares_per_s:g} shares/s)")
+        cfg = AppConfig()
+        cfg.mining.algorithm = "x11"
+        cfg.mining.device = "cuda"
+        cfg.work.enabled = True
+        cfg.work.poll_seconds = 0.5
+        chain = MockChainClient(nbits=nbits)
+        app = Application(cfg, chain=chain)
+        shares, outcomes = [], []
+        on_share, submit = app._on_share, chain.submit_block
+
+        async def record_share(share):
+            shares.append((share, app.worksource.get_job(share.job_id)))
+            await on_share(share)
+
+        async def record_submit(header):
+            outcome = await submit(header)
+            outcomes.append((header, outcome))
+            return outcome
+
+        app._on_share = record_share
+        chain.submit_block = record_submit
+
+        async def run31():
+            await app.start()
+            try:
+                t_end = time.monotonic() + MAIN_PATH_BOUND_S
+                while app.engine.state.value != "running":
+                    check(time.monotonic() < t_end, "x11 engine never started")
+                    check(not any(t.done() and not t.cancelled()
+                                  and t.exception() for t in app._tasks),
+                          "a background task failed before the engine "
+                          "started")
+                    await asyncio.sleep(0.05)
+                watch.start(app.engine)
+                h0, t0 = app.engine.stats.hashes, time.monotonic()
+                with Sampler(1.0) as sampled:
+                    await asyncio.sleep(window_s)
+                h1, t1 = app.engine.stats.hashes, time.monotonic()
+                watch.stop()
+                return h1 - h0, t1 - t0, sampled.summary()
+            finally:
+                await app.stop()
+
+        xc.search_launches.reset()
+        xt.calls.reset()
+        watch = HashWatch()
+        hashes, seconds, clocks = asyncio.run(run31())
+        launches, plain = xc.search_launches.value, xt.calls.value
+        steady_rate, steady_text = watch.summary()
+        backend = next(iter(app.engine.backends.values()))
+        check(backend.name == "x11-cuda", f"the engine ran {backend.name}")
+        check(launches > 0 and plain == 0,
+              f"B6 launches {launches}, plain-version calls {plain}")
+        check(shares, "no x11 share in the window")
+        for share, job in shares:
+            header = header_from_share(job, share.extranonce2, share.ntime,
+                                       share.nonce_word)
+            v = x11_value(header)
+            check(v.to_bytes(32, "little") == share.digest
+                  and v <= job.share_target,
+                  f"x11 share {share.nonce_word:#x} fails the host chain")
+        refused = sum(not o.accepted for _, o in outcomes)
+        for header, outcome in outcomes:
+            check(outcome.accepted == (int.from_bytes(hashlib.sha256(
+                hashlib.sha256(header).digest()).digest(), "little")
+                <= chain_target), "the mock chain's verdict != sha256d's")
+        print(f"   {len(shares)} shares ({len(shares) / seconds:.1f}/s), each "
+              f"re-hashed through the host chain at or under its target; "
+              f"{len(outcomes)} block candidates submitted, {refused} "
+              f"refused by the mock chain (it checks blocks by sha256d); "
+              f"engine batch {app.engine.planned_batch(backend)} lanes, "
+              f"{app.engine.config.pipeline_depth} a group; {hashes} hashes "
+              f"in {seconds:.2f} s = {hashes / seconds / 1e6:.2f} MH/s over "
+              f"the window; {steady_text}; B6 launches {launches}, "
+              f"plain-version calls {plain}; {clocks}", flush=True)
+        return launches, steady_rate
+
+    solo = {rate: solo_window(rate, window_s)
+            for rate, window_s in X11_SOLO_WINDOWS}
+    main_launches = sum(launches for launches, _ in solo.values())
+
+    # -- 32. main path (b): x11 shares at the pool ledger ------------------------
+    phase(f"32 main path: {X11_FLUSHES} x11 flushes of 1,024 through "
+          "PoolManager.on_share_batch -> B6's verify kernel")
+
+    def byzantine_difficulty(v: int) -> float:
+        """the float difficulty whose target is the largest below v"""
+        s = (tgt.DIFF1_TARGET << 32) // v + 1
+        while (tgt.DIFF1_TARGET << 32) // s >= v:
+            s += 1
+        return s / (1 << 32)
+
+    def flush(first):
+        hd = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
+        digests = host.x11_digest_batch(hd)
+        byz = rng.random(1024) < 1 / 256
+        batch, honest = [], []
+        for i in range(1024):
+            d = digests[i].tobytes()
+            v = int.from_bytes(d, "little")
+            diff = (byzantine_difficulty(v) if byz[i]
+                    else tgt.target_to_difficulty(v) * 0.5)
+            honest.append(v <= tgt.difficulty_to_target(diff))
+            batch.append(AcceptedShare(
+                session_id=first + i, worker_user=f"x.{(first + i) % 512}",
+                job_id="x11-ledger", difficulty=diff, actual_difficulty=diff,
+                digest=d, header=hd[i].tobytes(),
+                extranonce2=struct.pack(">I", first + i), ntime=1_700_000_000,
+                nonce_word=0, is_block=False, submitted_at=1_700_000_000.0,
+                algorithm="x11"))
+        return batch, honest
+
+    t0 = time.monotonic()
+    flushes = [flush(1024 * f) for f in range(X11_FLUSHES)]
+    print(f"   {X11_FLUSHES * 1024} x11 shares built and hashed by the host "
+          f"chain in {time.monotonic() - t0:.1f} s", flush=True)
+    pm = PoolManager(connect_database(":memory:"), MockChainClient())
+    pm.validator = ValidationBackend(min_batch=128, tripwire_rate=0.05,
+                                     seed=SEED)
+    xc.verify_launches.reset()
+    xt.calls.reset()
+
+    async def run32():
+        outs, secs = [], []
+        for batch, _ in flushes:
+            t = time.monotonic()
+            outs.append(await pm.on_share_batch(batch))
+            secs.append(time.monotonic() - t)
+        return outs, secs
+
+    outs, secs = asyncio.run(run32())
+    ledger_launches, ledger_plain = xc.verify_launches.value, xt.calls.value
+    snap = pm.validator.snapshot()
+    honest_total = 0
+    for (batch, honest), outcomes_ in zip(flushes, outs):
+        for ok, outcome in zip(honest, outcomes_):
+            check(outcome == (("ok", "") if ok
+                              else ("err", "share failed validation")),
+                  f"ledger outcome {outcome} != the host chain's verdict {ok}")
+        honest_total += sum(honest)
+    total = X11_FLUSHES * 1024
+    check(pm.shares.count() == honest_total
+          and pm.ledger_stats["shares_ok"] == honest_total
+          and pm.ledger_stats["shares_rejected"] == total - honest_total,
+          f"books: {pm.shares.count()} shares, {pm.ledger_stats}, honest "
+          f"{honest_total}")
+    check(snap["device_batches"] == X11_FLUSHES
+          and snap["validated_device"] == total and snap["device_errors"] == 0
+          and snap["tripwire_mismatches"] == 0 and snap["overflows"] == 0
+          and snap["host_batches"] == 0,
+          f"validator snapshot {snap}")
+    check(ledger_launches == X11_FLUSHES and ledger_plain == 0,
+          f"B6 verify launches {ledger_launches}, plain calls {ledger_plain}")
+    rates = sorted(1024 / s for s in secs)
+    print(f"   {total} shares in {sum(secs):.2f} s = {total / sum(secs):.0f} "
+          f"shares/s; per flush median {rates[len(rates) // 2]:.0f}, min "
+          f"{rates[0]:.0f}, max {rates[-1]:.0f}; every outcome = the host "
+          f"chain's; books: {pm.shares.count()} shares = the honest ones, "
+          f"{total - honest_total} rejected; tripwire checks "
+          f"{snap['tripwire_checks']}, mismatches 0, device errors 0, "
+          f"overflows 0; B6 verify launches {ledger_launches}, plain-version "
+          f"calls {ledger_plain}", flush=True)
+    del pm
+
+    # -- 33. times ---------------------------------------------------------------
+    phase("33 B6 times beside the bound; a sha256d -> x11 -> sha256d switch "
+          "with an x11 probe")
+    stream = torch.cuda.Stream(dev)
+    out = torch.empty(sc.winner_buffer_words(16), dtype=torch.int32,
+                      device=dev)
+    reps, rounds = 3, 3
+
+    def time_search(lanes):
+        xc.x11_search(prefix, 0, lanes - 1, limbs_of(0), batch=lanes, k=16,
+                      device=dev, stream=stream, out=out)
+        per = []
+        for _ in range(rounds):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(stream)
+            for _ in range(reps):
+                xc.x11_search(prefix, 0, lanes - 1, limbs_of(0), batch=lanes,
+                              k=16, device=dev, stream=stream, out=out)
+            e1.record(stream)
+            e1.synchronize()
+            per.append(e0.elapsed_time(e1) / reps)
+        return sorted(per)[rounds // 2], per
+
+    per_lane = counts["chain"]
+    total, alu, fma = (per_lane[k] for k in ("total", "alu", "fma"))
+    longest = max(v["seconds"] for v in counts.values())
+    print(f"   B6 a lane, from the SASS of its counting build (twelve builds "
+          f"from phase 1 on, the longest {longest:.1f} s): {total} "
+          f"instructions, ALU pipe {alu} ({alu / total:.1%}), FMA pipe "
+          f"{fma} ({fma / total:.1%}), {per_lane['smem_words']} "
+          f"shared-memory words; by stage "
+          + ", ".join(f"{name} {v['total']}/{v['alu']}/{v['fma']}/"
+                      f"{v['smem_words']} ({v['seconds']:.0f} s)"
+                      for name, v in counts.items() if name != "chain")
+          + " (all/ALU/FMA/shared words, the build's time)", flush=True)
+    with Sampler() as sampled:
+        search_times = {lanes: time_search(lanes)
+                        for lanes in (1 << 20, X11_CUDA_BATCH, 1 << 24)}
+
+    def bound(lanes, verify=False):
+        """(bound ms, by, text): the largest of the three bounds, by
+        "bytes" or else "operations" (a table lookup is one), as the
+        kernels line takes them; the text names each term"""
+        terms = xc.bound_ms(lanes, sms, clock_mhz, per_lane,
+                            verify=verify)
+        top = max(("operations", "shared-memory reads", "bytes"),
+                  key=terms.get)
+        text = ", ".join(f"{k} {v:.4f} ms" for k, v in terms.items())
+        return terms[top], "bytes" if top == "bytes" else "operations", text
+
+    for lanes, (ms, per) in search_times.items():
+        b_ms, by, text = bound(lanes)
+        print(f"   search {lanes} lanes: {ms:.3f} ms ({', '.join(f'{t:.3f}' for t in per)}) "
+              f"= {lanes / ms / 1e3:.2f} MH/s; bound {b_ms:.3f} ms by {by} "
+              f"({b_ms / ms:.1%} of it; {text})", flush=True)
+    print(f"   {sampled.summary()}", flush=True)
+    search_ms = search_times[X11_CUDA_BATCH][0]
+    b6_rate = X11_CUDA_BATCH / search_ms * 1e3
+    for rate, (_, steady) in solo.items():
+        print(f"   solo x11 at about {rate:g} shares/s (phase 31): steady "
+              f"{steady / 1e6:.2f} MH/s = {steady / b6_rate:.1%} of B6's "
+              f"{b6_rate / 1e6:.2f} MH/s at {X11_CUDA_BATCH} lanes",
+              flush=True)
+    search_bound, search_by, _ = bound(X11_CUDA_BATCH)
+    # a 1,024-share verify call at the ledger's size
+    w, t = on_card(xt.headers_to_words(hv)), on_card(tl)
+    vout = torch.empty(sc.winner_buffer_words(256), dtype=torch.int32,
+                       device=dev)
+    xc.x11_verify(w, t, 1024, k=256, stream=stream, out=vout)
+    per = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(stream)
+        for _ in range(10):
+            xc.x11_verify(w, t, 1024, k=256, stream=stream, out=vout)
+        e1.record(stream)
+        e1.synchronize()
+        per.append(e0.elapsed_time(e1) / 10)
+    verify_ms = sorted(per)[rounds // 2]
+    verify_bound, verify_by, text = bound(1024, verify=True)
+    print(f"   verify, 1,024 shares a call: {verify_ms:.4f} ms "
+          f"({', '.join(f'{x:.4f}' for x in per)}); bound {verify_bound:.4f} "
+          f"ms by {verify_by} ({text}): 1,024 lanes fill {1024 // xc.THREADS} of "
+          f"{sms} SMs, so a call is one lane's chain; plain version "
+          f"{plain_verify_s * 1e3:.0f} ms", flush=True)
+    print(f"   bound: a lane's {alu} ALU-pipe and {fma} FMA-pipe "
+          f"instructions and {per_lane['smem_words']} shared-memory "
+          f"words on {sms} SMs x {xc.INT_LANES_PER_SM} integer lanes (the "
+          f"ALU pipe {xc.ALU_LANES_PER_SM} of them) x {clock_mhz:.0f} MHz; "
+          f"{card}", flush=True)
+
+    manager = AlgorithmManager("cuda", device=str(dev))
+    switch_shares, jobs, downs = [], {}, []
+
+    async def on_switch_share(s):
+        switch_shares.append(s)
+
+    async def run33():
+        sha = manager.prepare_backend("sha256d", warm_count=MAIN_BATCH)
+        engine = MiningEngine({sha.name: sha}, on_share=on_switch_share,
+                              config=EngineConfig())
+
+        def new_job(job_id, algorithm, target):
+            jobs[job_id] = smoke_job(job_id, algorithm, target)
+            engine.set_job(jobs[job_id])
+
+        await engine.start()
+        try:
+            new_job("s33-sha0", "sha256d", SUPERVISED_TARGET)
+            await asyncio.sleep(1.5)
+            x11 = await manager.prepare_backend_async(
+                "x11", warm_count=engine.planned_batch)
+            downs.append(await engine.switch_algorithm("x11", {x11.name: x11}))
+            new_job("s33-x11", "x11", (1 << 256) // (1 << 24))
+            await asyncio.sleep(3.0)
+            sha = await manager.prepare_backend_async(
+                "sha256d", warm_count=engine.planned_batch)
+            downs.append(await engine.switch_algorithm("sha256d",
+                                                       {sha.name: sha}))
+            new_job("s33-sha1", "sha256d", SUPERVISED_TARGET)
+            await asyncio.sleep(1.5)
+        finally:
+            await engine.close()
+        return engine
+
+    xc.search_launches.reset()
+    engine = asyncio.run(run33())
+    switch_launches = xc.search_launches.value
+    n = check_shares(switch_shares, jobs)
+    per_job = {j: sum(s.job_id == j for s in switch_shares) for j in jobs}
+    check(per_job["s33-sha0"] and per_job["s33-sha1"],
+          f"a sha256d side mined no share: {per_job}")
+    check(switch_launches > 0 and max(downs) < 0.5,
+          f"x11 side: {switch_launches} B6 launches, downtimes {downs}")
+    probe = manager.backend_for("x11")
+    xc.search_launches.reset()
+    jc, res, base, count = engine._probe_search(probe)
+    probe_launches = xc.search_launches.value
+    expect = supervision.expected_probe_winners("x11", jc, base, count)
+    check(supervision.verify_probe_results("x11", jc, res, base, count),
+          "the x11 probe failed the host chain")
+    probe.close()
+    print(f"   switch downtimes {downs[0] * 1e3:.2f} ms into x11, "
+          f"{downs[1] * 1e3:.2f} ms back; shares by job {per_job}, {n} "
+          f"re-hashed (sha256d by hashlib, x11 by the host chain); B6 "
+          f"launches on the x11 side {switch_launches}; an x11 probe: "
+          f"{probe_launches} B6 launches (warmup, then {count} lanes, "
+          f"{len(expect)} winners), verified against the host chain",
+          flush=True)
+
+    return [{
+        "name": "x11_search",
+        "route": "cuda",
+        "source": "otedama_tpu_torch/kernels/csrc/x11.cu",
+        "replaces": "otedama_tpu/kernels/x11/jnp_chain.py:853",
+        "launches": main_launches,
+        "max_abs_err": max_err["search"],
+        "ms": search_ms,
+        "plain_ms": plain_main_s * 1e3,
+        "bound_ms": search_bound,
+        "bound_by": search_by,
+        "library_ms": None,
+        "path": (f"solo x11 Application (phase 31): {main_launches} "
+                 f"launches of {X11_CUDA_BATCH} lanes; the x11 side of a "
+                 f"warm switch (phase 33): {switch_launches}"),
+    }, {
+        "name": "x11_verify",
+        "route": "cuda",
+        "source": "otedama_tpu_torch/kernels/csrc/x11.cu",
+        "replaces": "otedama_tpu/kernels/x11/jnp_chain.py:878",
+        "launches": ledger_launches,
+        "max_abs_err": max_err["verify"],
+        "ms": verify_ms,
+        "plain_ms": plain_verify_s * 1e3,
+        "bound_ms": verify_bound,
+        "bound_by": verify_by,
+        "library_ms": None,
+        "path": (f"pool ledger on_share_batch, x11 flushes of 1,024 (phase "
+                 f"32): {ledger_launches} launches"),
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -4159,6 +4797,7 @@ def main() -> int:
     from otedama_tpu_torch.kernels import sha256_cuda as sc
     from otedama_tpu_torch.kernels import sha256_torch as st
     from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels import x11_cuda as xc
     from otedama_tpu_torch.kernels.card import Sampler
     from otedama_tpu_torch.pool.blockchain import MockChainClient
     from otedama_tpu_torch.runtime.search import CudaBackend, JobConstants
@@ -4216,23 +4855,35 @@ def main() -> int:
     print(f"   torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; {props.multi_processor_count} "
           f"SMs, max SM clock {clock_mhz:.0f} MHz", flush=True)
+    # B6's counting build (phase 33's bound) compiles at a low priority
+    # behind the phases that follow; two of its twelve builds take minutes
+    counting = BACKGROUND.submit(xc.chain_instructions)
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for f in [pool.submit(load) for load in (sc.load_library,
-                                                 scc.load_library)]:
+                                                 scc.load_library,
+                                                 xc.load_library)]:
             f.result()
     print(f"   kernels built and loaded in {time.monotonic() - t0:.1f} s",
           flush=True)
-    for info in (sc.build_info, scc.build_info):
+    for info in (sc.build_info, scc.build_info, xc.build_info):
         print(f"   {info['library']}: nvcc {info.get('seconds', 0.0):.1f} s",
               flush=True)
     # B2's work is straight-line code (its loops are the bulk copy's wait
-    # and the last block's bookkeeping), so its count is the whole kernel's
+    # and the last block's bookkeeping), so its count is the whole kernel's;
+    # B6's loops run the rounds of its stages, so its static count is the
+    # whole kernel's and the instructions a lane executes come from its
+    # counting build, stage by stage (x11_cuda.chain_instructions, phase 33)
     for info, kernel, loop in ((sc.build_info, "search_kernel", True),
                                (sc.build_info, "verify_kernel", False),
-                               (scc.build_info, "romix_kernel", True)):
+                               (scc.build_info, "romix_kernel", True),
+                               (xc.build_info, "x11_search_kernel", False),
+                               (xc.build_info, "x11_verify_kernel", False)):
         for line in cuda_build.kernel_report(info, kernel, loop):
             print(f"   {line}", flush=True)
+    for line in xc.build_info.get("ptxas", "").splitlines():
+        if "cumulative stack size" in line:
+            print(f"   B6 {line.split(':', 1)[-1].strip()}", flush=True)
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -4518,6 +5169,7 @@ def main() -> int:
     b2_record["path"] += (f"; its catch-up, gossip and suffix pages (phase "
                           f"28): {durable['b2']}")
     b2_record["launches"] += durable["b2"]
+    kernels += x11_phases(dev, card, clock_mhz, counting.result())
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)
@@ -4530,12 +5182,58 @@ def main() -> int:
     return 0
 
 
+TURN_ORDER = ("parent", "change", "change", "parent", "parent", "change")
+_TURN_CODE = """
+import os, sys
+sys.path.insert(0, {tree!r})
+import otedama_tpu_torch
+sys.path.insert(1, {root!r})
+import chip_smoke, torch
+from otedama_tpu_torch.kernels import sha256_cuda
+sha256_cuda.load_library()
+print("package", os.path.dirname(otedama_tpu_torch.__file__), flush=True)
+getattr(chip_smoke, {fn!r})(torch.device("cuda", 0),
+                            chip_smoke.smi("name,power.limit"), *{args!r})
+os._exit(0)
+"""
+
+
+def turns(parent: str, fn: str, *args: float) -> int:
+    """``python3 chip_smoke.py --turns DIR FUNCTION [ARG ...]``: the phase
+    function FUNCTION of this script (it takes the device, the card's name
+    and the numbers ARG: ``failover_phase``, phase 24, takes none,
+    ``fleet_phase``, phase 22, phase 5's B1 rate in H/s) alone, in a
+    process of its own for each turn, with the ``otedama_tpu_torch``
+    package under DIR (an earlier commit's, unpacked with ``git archive
+    <commit> otedama_tpu_torch | tar -x -C DIR``; it builds into
+    DIR/build) and with this checkout's, in the turns of ``TURN_ORDER``.
+    Prints each turn's output; exits non-zero if a turn failed."""
+    trees = {"parent": os.path.abspath(parent), "change": ROOT}
+    rc = 0
+    for name in TURN_ORDER:
+        out = subprocess.run(
+            [sys.executable, "-c", _TURN_CODE.format(
+                tree=trees[name], root=ROOT, fn=fn, args=args)],
+            capture_output=True, text=True, timeout=600)
+        print(f"-- turn: {name}, {fn}, rc {out.returncode}",
+              flush=True)
+        print((out.stdout + out.stderr)[-4000:], flush=True)
+        rc = rc or out.returncode
+    print(smi("name,power.limit"), flush=True)
+    return rc
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"]:
+        os._exit(turns(sys.argv[2], sys.argv[3],
+                       *(float(a) for a in sys.argv[4:])))
     try:
         rc = main()
     except Exception:
         traceback.print_exc()
         rc = 1
+    # the counting build's compilers end before the script does
+    BACKGROUND.shutdown(wait=True, cancel_futures=True)
     sys.stdout.flush()
     sys.stderr.flush()
     # no lingering executor thread may hold the process open

@@ -188,6 +188,7 @@ class Application:
                 tripwire_rate=cfg.validation.tripwire_rate,
                 quarantine_seconds=cfg.validation.quarantine_seconds,
                 device=cfg.mining.device,
+                x11_chain=cfg.validation.x11_chain,
             )
             if self.pool is not None:
                 self.pool.validator = self.validator

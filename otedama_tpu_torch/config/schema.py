@@ -262,8 +262,11 @@ class ValidationSettings:
     tripwire_rate: float = 0.05
     # seconds the device path stays quarantined after an injected fault
     quarantine_seconds: float = 60.0
-    # the reference's x11 validation tier; x11 comes with ROADMAP A9
-    x11_chain: str = "numpy"
+    # the x11 tier: "cuda" (kernel B6 on mining.device, the plain version
+    # on the CPU) or "numpy" (the host tier's lane-axis pipeline). The
+    # reference's names are "jax" and "numpy", and its default "numpy"
+    # only because its XLA compile takes minutes
+    x11_chain: str = "cuda"
 
 
 @dataclasses.dataclass
@@ -453,9 +456,8 @@ def validate_config(cfg: AppConfig) -> list[str]:
         errors.append("validation.tripwire_rate must be in [0, 1]")
     if cfg.validation.quarantine_seconds < 0:
         errors.append("validation.quarantine_seconds must be >= 0")
-    if cfg.validation.x11_chain != "numpy":
-        errors.append("validation.x11_chain other than 'numpy' needs x11, "
-                      "not ported yet (ROADMAP A9)")
+    if cfg.validation.x11_chain not in ("numpy", "cuda"):
+        errors.append("validation.x11_chain must be 'numpy' or 'cuda'")
     if cfg.p2p.share_difficulty <= 0:
         errors.append("p2p.share_difficulty must be positive")
     if cfg.p2p.pplns_window <= 0:

@@ -36,30 +36,54 @@ def nvcc() -> str:
                        "the port's kernels")
 
 
+def _compile(source: str, headers: tuple[str, ...], flags: tuple[str, ...],
+             name: str, nice: int = 0) -> tuple[Path, dict]:
+    """``csrc/<source>`` compiled with ``flags`` into ``BUILD_DIR`` under
+    ``name`` (``{stem}`` and ``{tag}`` filled in: the tag hashes the
+    source, its headers and the flags), unless it is there, by an nvcc
+    at niceness ``nice``. Returns the path and ``seconds`` and ``ptxas``
+    when it compiled."""
+    src = CSRC / source
+    content = src.read_bytes() + b"".join((CSRC / h).read_bytes()
+                                          for h in headers)
+    tag = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / name.format(stem=src.stem, tag=tag)
+    info: dict = {}
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.monotonic()
+        proc = subprocess.run(["nice", "-n", str(nice), nvcc(), *flags,
+                               "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                               f"{src} ({' '.join(flags)}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        info.update(seconds=time.monotonic() - t0, ptxas=proc.stderr.strip())
+    info["library"] = str(out)
+    return out, info
+
+
 def build(source: str, headers: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, dict]:
     """Build ``csrc/<source>`` (unless a library of the same content is
     there) and load it. Returns the library and what the build reported:
     ``seconds`` and ``ptxas`` (registers, spills) when it compiled, and
     ``library``, the path."""
-    src = CSRC / source
-    content = src.read_bytes() + b"".join((CSRC / h).read_bytes()
-                                          for h in headers)
-    tag = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{src.stem}-{tag}.so"
-    info: dict = {}
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.monotonic()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{src}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        info.update(seconds=time.monotonic() - t0, ptxas=proc.stderr.strip())
-    info["library"] = str(so)
+    so, info = _compile(source, headers, NVCC_FLAGS, "lib{stem}-{tag}.so")
     return ctypes.CDLL(str(so)), info
+
+
+def cubin(source: str, headers: tuple[str, ...] = (),
+          defines: tuple[str, ...] = ()) -> dict:
+    """Compile ``csrc/<source>`` with ``-D`` ``defines`` into a cubin, for
+    its SASS only (nothing loads it), at a low priority. Returns what
+    ``build`` reports, ``library`` being the cubin's path."""
+    flags = (*NVCC_FLAGS[:NVCC_FLAGS.index("-shared")], "-cubin",
+             "-Xptxas", "-v", *(f"-D{d}" for d in defines))
+    return _compile(source, headers, flags, "{stem}-{tag}.cubin",
+                    nice=10)[1]
 
 
 def ptxas_usage(ptxas: str) -> dict[str, str]:

@@ -17,11 +17,17 @@ which returns the fixed ``uint32[2k+3]`` winner buffer
 - ``ScryptCudaBackend``, ``ScryptTorchBackend``, ``ScryptPythonBackend`` —
   the same three for scrypt (Litecoin), the counterparts of
   ``ScryptPallasBackend``, ``ScryptXlaBackend`` and ``ScryptPythonBackend``.
+- ``X11CudaBackend``, ``X11TorchBackend``, ``X11NumpyBackend`` — x11 (the
+  JAX package's chain, ``kernels/x11``): kernel B6 on the card (the
+  counterpart of ``X11JaxBackend``), its plain version, and the host
+  tier's lane-axis numpy pipeline.
 
 A launch whose table overflows (more than k winners — test-easy targets
 only) is bisected: its halves are launched again, on the same backend,
 until each holds at most k winners. The CUDA backend therefore never hands
-a window to the plain version.
+a window to the plain version. (The reference rescans an overflowed x11
+chunk with its dense numpy pipeline; the port bisects it with B6 like the
+other algorithms.)
 
 Winner nonces use the kernel word convention: ``nonce_word`` is the
 big-endian read of header bytes 76:80 (wire bytes = pack(">I", nonce_word)).
@@ -32,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import struct
 import threading
 import time
@@ -44,6 +51,8 @@ from otedama_tpu_torch.kernels import scrypt_torch
 from otedama_tpu_torch.kernels import sha256_cuda as sc
 from otedama_tpu_torch.kernels import sha256_torch as st
 from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.kernels import x11 as x11_host
+from otedama_tpu_torch.kernels import x11_cuda, x11_torch
 from otedama_tpu_torch.utils import pow_host
 from otedama_tpu_torch.utils import sha256_host as sh
 
@@ -140,10 +149,32 @@ def _offset(nonce_word: int, base: int) -> int:
     return (nonce_word - base) & _M32
 
 
+# the most slots a winner table sized from the job's target takes (a
+# one-thread sort orders them after each launch); past it a window bisects
+K_SIZED_MAX = 256
+
+
+def table_depth(target: int, lanes: int, floor: int) -> int:
+    """Winner-table slots for a window of ``lanes`` nonces at ``target``:
+    the expected winners plus eight standard deviations plus eight (a
+    window overflows it about never), at least ``floor``, at most
+    ``K_SIZED_MAX``."""
+    lam = lanes * ((target + 1) / float(1 << 256))
+    return max(floor, min(K_SIZED_MAX, math.ceil(lam + 8 * math.sqrt(lam) + 8)))
+
+
 class _BufferBackend:
     """Host side shared by the backends whose launches return the winner
     buffer: windows launched together before one read-back, host re-check
-    of every winner, and the bisecting overflow rescan."""
+    of every winner, and the bisecting overflow rescan.
+
+    Without a ``winner_depth`` the table of a group of launches is sized
+    from the job's target (``table_depth``, at least 16 slots), so that a
+    window at an easy share target (a pool's vardiff start, a test) does
+    not overflow. A bisect is a second round of launches behind whatever
+    the stream holds by then, and at a job change the engine has already
+    queued the new job's first group there (ROADMAP Queue C 35). A given
+    ``winner_depth`` is kept as it is."""
 
     name = "?"
 
@@ -152,16 +183,27 @@ class _BufferBackend:
         self.k = int(winner_depth or sc.K_WINNERS)
         if self.k < 1:
             raise ValueError(f"winner_depth must be >= 1, got {self.k}")
+        self.sized = not winner_depth
+
+    def _depth(self, jc: JobConstants, windows: list[tuple[int, int]]) -> int:
+        """The table depth for one group of launches."""
+        if not self.sized or not windows:
+            return self.k
+        return table_depth(jc.target, max(c for _, c in windows), self.k)
 
     def _launch_all(self, jc: JobConstants,
-                    windows: list[tuple[int, int]]) -> np.ndarray:
-        """Run one launch per (base, count) window; returns the buffers as
-        uint32 ``[len(windows), 2k+3]``."""
+                    windows: list[tuple[int, int]], k: int) -> np.ndarray:
+        """Run one launch per (base, count) window with a table of ``k``
+        slots; returns the buffers as uint32 ``[len(windows), 2k+3]``."""
         raise NotImplementedError
 
     def _digest(self, jc: JobConstants, nonce_word: int) -> bytes:
         """The host's proof-of-work digest of one winner."""
         raise NotImplementedError
+
+    def _digests(self, jc: JobConstants, nonce_words: list[int]) -> list[bytes]:
+        """The host's digests of a group's winners."""
+        return [self._digest(jc, w) for w in nonce_words]
 
     def precompile(self, jc: JobConstants | None = None,
                    count: int | None = None) -> float:
@@ -170,18 +212,26 @@ class _BufferBackend:
     def _search_windows(
         self, jc: JobConstants, windows: list[tuple[int, int]]
     ) -> list[SearchResult]:
-        """One result per window, all launched before the one read-back."""
-        bufs = self._launch_all(jc, windows)
-        return [
-            self._collect(jc, base, count, buf)
-            for (base, count), buf in zip(windows, bufs)
-        ]
+        """One result per window, all launched before the one read-back;
+        the winners of all of them (bisects included) re-checked on the
+        host together."""
+        k = self._depth(jc, windows)
+        bufs = self._launch_all(jc, windows, k)
+        found = [self._found(jc, base, count, buf, k)
+                 for (base, count), buf in zip(windows, bufs)]
+        good = self._verified(jc, [w for words, _ in found for w in words])
+        return [SearchResult([good[w] for w in words if w in good], count,
+                             min_hash)
+                for (words, min_hash), (_, count) in zip(found, windows)]
 
-    def _verified(self, jc: JobConstants, nonce_words) -> list[Winner]:
-        winners: list[Winner] = []
-        for w in nonce_words:
-            w = int(w)
-            digest = self._digest(jc, w)
+    def _verified(self, jc: JobConstants, nonce_words) -> dict[int, Winner]:
+        """The winners whose host digest meets the job's target, by nonce
+        word."""
+        nonce_words = [int(w) for w in nonce_words]
+        winners: dict[int, Winner] = {}
+        if not nonce_words:
+            return winners
+        for w, digest in zip(nonce_words, self._digests(jc, nonce_words)):
             if not tgt.hash_meets_target(digest, jc.target):
                 # the device decision is exact, so a host-side miss means
                 # the DEVICE produced a wrong winner — corruption, not a
@@ -192,23 +242,24 @@ class _BufferBackend:
                     self.name, w, digest.hex(), jc.target,
                 )
                 continue
-            winners.append(Winner(w, digest))
+            winners[w] = Winner(w, digest)
         return winners
 
-    def _collect(self, jc: JobConstants, base: int, count: int,
-                 buf) -> SearchResult:
-        wn, _, n, min_hash = sc.unpack_winner_buffer(buf, self.k)
-        if n > self.k:
-            winners = self._bisect(jc, base, count)
-        else:
-            winners = self._verified(jc, wn[:n])
-        return SearchResult(winners, count, min_hash)
+    def _found(self, jc: JobConstants, base: int, count: int,
+               buf, k: int) -> tuple[list[int], int]:
+        """A window's winning nonce words in offset order (bisected when
+        it overflowed its table) and its min top limb."""
+        wn, _, n, min_hash = sc.unpack_winner_buffer(buf, k)
+        if n > k:
+            return self._bisect(jc, base, count, k), min_hash
+        return [int(w) for w in wn[:n]], min_hash
 
-    def _bisect(self, jc: JobConstants, base: int, count: int) -> list[Winner]:
-        """Every winner of an overflowing window: split it in halves and
-        launch them (all halves of one level together) until each half
-        holds at most k winners, then order the winners by offset."""
-        winners: list[Winner] = []
+    def _bisect(self, jc: JobConstants, base: int, count: int,
+                k: int) -> list[int]:
+        """Every winning nonce word of an overflowing window: split it in
+        halves and launch them (all halves of one level together) until
+        each half holds at most k winners, then order them by offset."""
+        words: list[int] = []
         overflowing = [(base, count)]
         while overflowing:
             halves = []
@@ -216,14 +267,14 @@ class _BufferBackend:
                 h = c // 2  # c > k >= 1, so both halves are non-empty
                 halves += [(b, h), ((b + h) & _M32, c - h)]
             overflowing = []
-            for (b, c), buf in zip(halves, self._launch_all(jc, halves)):
-                wn, _, n, _ = sc.unpack_winner_buffer(buf, self.k)
-                if n > self.k:
+            for (b, c), buf in zip(halves, self._launch_all(jc, halves, k)):
+                wn, _, n, _ = sc.unpack_winner_buffer(buf, k)
+                if n > k:
                     overflowing.append((b, c))
                 else:
-                    winners += self._verified(jc, wn[:n])
-        winners.sort(key=lambda w: _offset(w.nonce_word, base))
-        return winners
+                    words += [int(w) for w in wn[:n]]
+        words.sort(key=lambda w: _offset(w, base))
+        return words
 
 
 class _Sha256dBackend(_BufferBackend):
@@ -349,13 +400,13 @@ class CudaBackend(_CardBackend, _Sha256dBackend):
         sc.load_library()
         return time.monotonic() - t0 + warmup_backend(self, jc, count)
 
-    def _launch_all(self, jc, windows):
+    def _launch_all(self, jc, windows, k):
         def launch(base, count, out):
             sc.sha256d_search(jc.job_words(base, count), batch=count,
-                              k=self.k, device=self.device,
+                              k=k, device=self.device,
                               stream=self.stream, out=out)
 
-        return _launch_rows(self.device, self.stream, windows, self.k, launch,
+        return _launch_rows(self.device, self.stream, windows, k, launch,
                             self._enqueue())
 
 
@@ -371,10 +422,10 @@ class TorchBackend(_Sha256dBackend):
         super().__init__(device, winner_depth)
         self.chunk = chunk
 
-    def _launch_all(self, jc, windows):
+    def _launch_all(self, jc, windows, k):
         bufs = [
             st.sha256d_search_buffer(jc.job_words(base, count), batch=count,
-                                     k=self.k, device=self.device,
+                                     k=k, device=self.device,
                                      chunk=self.chunk)
             for base, count in windows
         ]
@@ -494,18 +545,18 @@ class ScryptCudaBackend(_CardBackend, _ScryptBackend):
             self._scratch_for_chunk()
         return time.monotonic() - t0 + warmup_backend(self, jc, count)
 
-    def _launch_all(self, jc, windows):
+    def _launch_all(self, jc, windows, k):
         h19 = scrypt_torch.header_words19(jc.header76)
 
         def launch(base, count, out):
             if count > self.chunk:
                 raise ValueError(f"window of {count} lanes > chunk {self.chunk}")
             scc.scrypt_search(h19, base, jc.limbs, count - 1, n=count,
-                              k=self.k, device=self.device, tier=self.tier,
+                              k=k, device=self.device, tier=self.tier,
                               stream=self.stream, out=out,
                               scratch=self._scratch_for_chunk())
 
-        return _launch_rows(self.device, self.stream, windows, self.k, launch,
+        return _launch_rows(self.device, self.stream, windows, k, launch,
                             self._enqueue())
 
 
@@ -519,7 +570,7 @@ class ScryptTorchBackend(_ScryptBackend):
                  chunk: int = 1 << 10):
         super().__init__(device, winner_depth, chunk)
 
-    def _launch_all(self, jc, windows):
+    def _launch_all(self, jc, windows, k):
         """Windows share ROMix calls of at most ``chunk`` lanes: a call
         costs about the same for few lanes as for many, and the bisect's
         halves of one window then take one call per level."""
@@ -532,7 +583,7 @@ class ScryptTorchBackend(_ScryptBackend):
             groups[-1].append((base, count))
             lanes += count
         bufs = [
-            scrypt_torch.scrypt_search_buffers(h19, group, jc.limbs, k=self.k,
+            scrypt_torch.scrypt_search_buffers(h19, group, jc.limbs, k=k,
                                                device=self.device)
             for group in groups if group
         ]
@@ -555,20 +606,178 @@ class ScryptPythonBackend:
             lambda w: pow_host.scrypt_1024_1_1(jc.header_for(w)))
 
 
+# -- x11 ------------------------------------------------------------------------
+
+# lanes per x11 launch on the card (one lane a thread; the engine groups
+# launches as for sha256d): chip_smoke.py phase 33 times B6 at this size
+# and below (PERF.md section 6)
+X11_CUDA_BATCH = 1 << 22
+
+
+def _offsets_to_nonces(bufs: np.ndarray, windows, k: int) -> np.ndarray:
+    """B6 and its plain version put lane offsets in the winner slots; the
+    shared host side reads nonce words there."""
+    bufs = bufs.copy()
+    for row, (base, _) in zip(bufs, windows):
+        n = min(int(row[2 * k]), k)
+        row[:n] = (row[:n].astype(np.uint64) + base) & _M32
+    return bufs
+
+
+class _X11Backend(_BufferBackend):
+    """x11 search: launches of ``x11_winner_step``'s contract (B6 or its
+    plain version) over the job's 76-byte prefix, every winner re-derived
+    through the port's host chain (``kernels.x11.x11_digest``) and dropped,
+    logged as corruption, if it fails there."""
+
+    algorithm = "x11"
+
+    def _digests(self, jc: JobConstants, nonce_words: list[int]) -> list[bytes]:
+        # one pass of the host chain over the group's winners
+        return pow_host.pow_digests([jc.header_for(w) for w in nonce_words],
+                                    "x11")
+
+    def _launch_x11(self, jc, windows, k) -> np.ndarray:
+        raise NotImplementedError
+
+    def _launch_all(self, jc, windows, k):
+        return _offsets_to_nonces(self._launch_x11(jc, windows, k), windows, k)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return self.search_group(jc, [(base, count)])[0]
+
+    def search_group(
+        self, jc: JobConstants, batches: list[tuple[int, int]]
+    ) -> list[SearchResult]:
+        return self._search_windows(jc, batches)
+
+
+class X11CudaBackend(_CardBackend, _X11Backend):
+    """x11 on the card, kernel B6 (the counterpart of ``X11JaxBackend``):
+    the nonce of each lane is made on the card, the winners decided
+    exactly there. One launch covers a batch of ``X11_CUDA_BATCH`` lanes;
+    the engine groups launches before one read-back, on the backend's own
+    stream. Between calls it holds only its stream; ``close()`` refuses
+    further calls."""
+
+    name = "x11-cuda"
+    preferred_batch = X11_CUDA_BATCH
+    max_batch = X11_CUDA_BATCH
+
+    def __init__(self, device="cuda", winner_depth: int | None = None):
+        super().__init__(device, winner_depth)
+        self._init_card("X11CudaBackend")
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        """Build and load the kernel library and copy its tables, then one
+        warmup launch of the batch the engine will dispatch."""
+        t0 = time.monotonic()
+        x11_cuda.load_library()
+        x11_cuda.device_tables(self.device)
+        return time.monotonic() - t0 + warmup_backend(self, jc, count)
+
+    def _launch_x11(self, jc, windows, k):
+        order = x11_torch.cnt_variant_order()
+
+        def launch(base, count, out):
+            x11_cuda.x11_search(jc.header76, base, count - 1, jc.limbs,
+                                batch=count, k=k, device=self.device,
+                                cnt_order=order, stream=self.stream, out=out)
+
+        return _launch_rows(self.device, self.stream, windows, k, launch,
+                            self._enqueue())
+
+
+class X11TorchBackend(_X11Backend):
+    """The plain PyTorch version of the x11 search on a given device: the
+    tests' CPU path. ``chunk`` bounds the lanes hashed at once (memory);
+    ``max_batch`` keeps one engine call short on the CPU."""
+
+    name = "x11-torch"
+
+    def __init__(self, device="cpu", winner_depth: int | None = None,
+                 chunk: int = 1 << 10):
+        super().__init__(device, winner_depth)
+        self.chunk = int(chunk)
+        self.max_batch = 4 * self.chunk
+
+    def _launch_x11(self, jc, windows, k):
+        """The windows' lanes share chain calls of at most ``chunk``
+        lanes, so that the bisect's halves of one window take one call a
+        level."""
+        bufs = x11_torch.x11_search_buffers(
+            jc.header76, [(base, count, count - 1) for base, count in windows],
+            jc.limbs, k=k, device=self.device,
+            cnt_order=x11_torch.cnt_variant_order(), chunk=self.chunk)
+        return bufs.cpu().numpy().astype(np.uint32)
+
+
+class X11NumpyBackend:
+    """Vectorized x11 chained-hash search through the host tier's
+    lane-axis numpy pipeline (``kernels.x11.x11_digest_batch``): the
+    zero-dependency oracle of the x11 backends."""
+
+    name = "x11-numpy"
+    algorithm = "x11"
+
+    def __init__(self, chunk: int = 1 << 10):
+        self.chunk = chunk
+        self.max_batch = 4 * chunk
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        return warmup_backend(self, jc, 1)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return _x11_chunk_search(jc, base, count, self.chunk)
+
+
+def _x11_chunk_search(jc: JobConstants, base: int, count: int,
+                      chunk: int) -> SearchResult:
+    """The reference's x11 chunk walk over the host chain: header
+    assembly, a top-limb prefilter, the exact 256-bit compare. (Its
+    ``fixed_shape`` and ``cross_check`` served its jitted device tier,
+    which the port's ``_X11Backend`` replaces.)"""
+    winners: list[Winner] = []
+    best = _M32
+    done = 0
+    prefix = np.frombuffer(jc.header76, dtype=np.uint8)
+    top_limb = (jc.target >> 224) & _M32
+    while done < count:
+        n = min(chunk, count - done)
+        headers = np.empty((n, 80), dtype=np.uint8)
+        headers[:, :76] = prefix
+        nonces = (base + done + np.arange(n, dtype=np.uint64)) & _M32
+        headers[:, 76:] = nonces.astype(">u4").view(np.uint8).reshape(n, 4)
+        digests = x11_host.x11_digest_batch(headers)
+        # LE-int compare: top limb = last 4 digest bytes, little-endian
+        hi = np.ascontiguousarray(digests[:, 28:32]).view("<u4").reshape(n)
+        best = min(best, int(hi.min()))
+        for idx in np.nonzero(hi <= top_limb)[0].tolist():
+            digest = digests[idx].tobytes()
+            if tgt.hash_meets_target(digest, jc.target):
+                winners.append(Winner(int(nonces[idx]), digest))
+        done += n
+    return SearchResult(winners, count, best)
+
+
 _BACKENDS = {
     "sha256d": {"cuda": CudaBackend, "torch": TorchBackend,
                 "python": PythonBackend},
     "scrypt": {"cuda": ScryptCudaBackend, "torch": ScryptTorchBackend,
                "python": ScryptPythonBackend},
+    "x11": {"cuda": X11CudaBackend, "torch": X11TorchBackend,
+            "python": X11NumpyBackend},
 }
 _BACKENDS["sha256"] = _BACKENDS["sha256d"]
 
 
 def make_backend(kind: str, algorithm: str = "sha256d", **kwargs):
     """``kind`` is ``cuda``, ``torch`` or ``python``; ``algorithm`` a
-    canonical name (``sha256d``, ``sha256``, ``scrypt``); kwargs go to the
-    backend (``device``, ``winner_depth``, ``chunk``, and ``tier`` for
-    scrypt on the card)."""
+    canonical name (``sha256d``, ``sha256``, ``scrypt``, ``x11``); kwargs go
+    to the backend (``device``, ``winner_depth``, ``chunk``, and ``tier``
+    for scrypt on the card)."""
     cls = _BACKENDS.get(algorithm, {}).get(kind)
     if cls is None:
         raise ValueError(f"no backend {kind!r} for algorithm {algorithm!r}")

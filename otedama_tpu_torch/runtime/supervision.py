@@ -279,16 +279,17 @@ def expected_probe_winners(
 ) -> dict[int, bytes]:
     """The exact host-oracle winner set for a probe range: nonce_word ->
     digest, computed independently of any device path."""
-    from otedama_tpu_torch.utils.pow_host import pow_digest
+    from otedama_tpu_torch.utils.pow_host import pow_digests
 
     key = (algorithm, jc.header76, jc.target, jc.block_number, base, count)
     cached = _EXPECTED_CACHE.get(key)
     if cached is not None:
         return cached
     out: dict[int, bytes] = {}
-    for i in range(count):
-        w = (base + i) & 0xFFFFFFFF
-        digest = pow_digest(jc.header_for(w), algorithm, jc.block_number)
+    nonces = [(base + i) & 0xFFFFFFFF for i in range(count)]
+    digests = pow_digests([jc.header_for(w) for w in nonces], algorithm,
+                          jc.block_number)
+    for w, digest in zip(nonces, digests):
         if tgt.hash_meets_target(digest, jc.target):
             out[w] = digest
     if len(_EXPECTED_CACHE) >= 32:  # bound: one entry per (algo, shape);
@@ -299,10 +300,9 @@ def expected_probe_winners(
     return out
 
 
-# algorithms whose host oracle (pow_digest) the port carries; x11 joins
-# when its host digest does (ROADMAP A9). Any other algorithm's probe is
-# verified structurally.
-_ORACLE_ALGORITHMS = frozenset({"sha256d", "sha256", "scrypt"})
+# algorithms whose host oracle (pow_digest) the port carries. Any other
+# algorithm's probe is verified structurally.
+_ORACLE_ALGORITHMS = frozenset({"sha256d", "sha256", "scrypt", "x11"})
 
 
 def verify_probe_results(

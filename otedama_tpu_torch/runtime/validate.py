@@ -18,8 +18,11 @@ again with a table of that many slots.
 
 The device tiers: the sha256d family on the verify kernel B2
 (``sha256_cuda.sha256d_verify``), scrypt on the verify prologue, the ROMix
-kernel B5 and the verify epilogue (``scrypt_cuda.scrypt_verify``). x11 and
-ethash validate on the host until their slices (ROADMAP A9, A10) land.
+kernel B5 and the verify epilogue (``scrypt_cuda.scrypt_verify``), x11 on
+B6's verify kernel (``x11_cuda.x11_verify``) or, with ``x11_chain =
+"numpy"``, on the host tier's lane-axis pipeline (``x11_verify_batch``,
+the reference's ``"numpy"`` tier). ethash validates on the host until its
+slice (ROADMAP A10) lands.
 
 Safety rails, in the same shape as the device SEARCH path's:
 
@@ -44,7 +47,11 @@ Where the port differs from the reference: ``device`` names a torch
 device (``"cuda"``, the default, or ``"cpu"`` for the plain versions)
 and ``None`` means host only (the reference's ``device=False``); nothing
 pads batches to compiled shapes (there is no compile cache to protect);
-the reference's ``rolled`` and ``x11_chain`` knobs are gone; a device
+the reference's ``rolled`` knob is gone; ``x11_chain`` takes ``"cuda"``
+(its ``"jax"``) or ``"numpy"`` and defaults to ``"cuda"`` (the reference's
+default is ``"numpy"`` because its XLA compile takes minutes); an x11
+batch's host work (the tripwire, the host path) is one pass of the
+lane-axis pipeline, not one host digest a share; a device
 error, an overflow and a tripwire mismatch take the ways above, where the
 reference host-validates all three; device dispatches run on threads of
 their own (``dispatch_executor``), not on the loop's default executor.
@@ -68,6 +75,7 @@ from otedama_tpu_torch.kernels import scrypt_cuda as scc
 from otedama_tpu_torch.kernels import sha256_cuda as sc
 from otedama_tpu_torch.kernels import sha256_torch
 from otedama_tpu_torch.kernels import target as tgt
+from otedama_tpu_torch.kernels import x11_cuda
 from otedama_tpu_torch.utils import faults
 from otedama_tpu_torch.utils import pow_host
 from otedama_tpu_torch.utils.histogram import LatencyHistogram
@@ -99,10 +107,13 @@ def dispatch_executor() -> concurrent.futures.ThreadPoolExecutor:
 
 # algorithms with a device verify tier. Deliberately NARROW: "sha256"
 # (single hash) has no device twin and must not fall into the sha256d
-# kernel; x11 and ethash join with their slices (ROADMAP A9, A10)
+# kernel; "dash" (x11's live-network alias) is refused by the host oracle
+# while x11 is uncertified; ethash joins with its slice (ROADMAP A10)
 _SHA256D_ALGOS = frozenset({"sha256d", "sha256double", "bitcoin"})
 _SCRYPT_ALGOS = frozenset({"scrypt", "litecoin"})
-_DEVICE_ALGOS = _SHA256D_ALGOS | _SCRYPT_ALGOS
+_X11_ALGOS = frozenset({"x11"})
+_DEVICE_ALGOS = _SHA256D_ALGOS | _SCRYPT_ALGOS | _X11_ALGOS
+X11_CHAINS = ("cuda", "numpy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,13 +208,18 @@ class ValidationBackend:
     def __init__(self, *, min_batch: int = VALIDATE_MIN_BATCH,
                  tripwire_rate: float = 0.05, k: int | None = None,
                  quarantine_seconds: float = 60.0,
-                 device: str | torch.device | None = "cuda", seed: int = 0):
+                 device: str | torch.device | None = "cuda", seed: int = 0,
+                 x11_chain: str = "cuda"):
         self.min_batch = max(1, int(min_batch))
         self.tripwire_rate = float(tripwire_rate)
         self.k = int(k or sc.K_WINNERS)
         if self.k < 1:
             raise ValueError(f"winner_depth must be >= 1, got {self.k}")
         self.quarantine_seconds = float(quarantine_seconds)
+        if x11_chain not in X11_CHAINS:
+            raise ValueError(f"unknown x11 validation chain {x11_chain!r} "
+                             f"(known: {X11_CHAINS})")
+        self.x11_chain = x11_chain
         self.device = None if device is None else torch.device(device)
         self.stream = None
         if self.device is not None:
@@ -220,6 +236,9 @@ class ValidationBackend:
                 # build and load now: a kernel that does not build must
                 # raise here, not quarantine on the first batch
                 scc.load_library()
+                if x11_chain == "cuda":
+                    x11_cuda.load_library()
+                    x11_cuda.device_tables(self.device)
                 self.stream = torch.cuda.Stream(device=self.device)
             elif self.device.type != "cpu":
                 raise ValueError(f"ValidationBackend runs on cuda or cpu, "
@@ -265,23 +284,41 @@ class ValidationBackend:
     # -- the host oracle ------------------------------------------------------
 
     @staticmethod
-    def _host_verdict(check: ShareCheck) -> bool:
-        digest = pow_host.pow_digest(
-            check.header, check.algorithm,
-            block_number=check.block_number,
-        )
-        return tgt.hash_meets_target(digest, check.target)
+    def _host_verdicts_of(checks: list[ShareCheck]) -> list[bool]:
+        """Exact verdicts of shares of one algorithm
+        (``pow_host.pow_digests``)."""
+        first = checks[0]
+        digests = pow_host.pow_digests([c.header for c in checks],
+                                       first.algorithm, first.block_number)
+        return [tgt.hash_meets_target(d, c.target)
+                for d, c in zip(digests, checks)]
+
+    async def _host_verdicts(self, checks: list[ShareCheck]) -> list[bool]:
+        """Exact host verdicts, CONCURRENT on the validation executor: the
+        x11 shares in one call (the host chain costs a pass whatever the
+        count), any other share a call of its own."""
+        loop = asyncio.get_running_loop()
+        pool = pow_host.validation_executor()
+        x11 = [i for i, c in enumerate(checks)
+               if (c.algorithm or "").lower() in _X11_ALGOS]
+        units = [x11] if x11 else []
+        units += [[i] for i in sorted(set(range(len(checks))) - set(x11))]
+        parts = await asyncio.gather(*(
+            loop.run_in_executor(pool, self._host_verdicts_of,
+                                 [checks[i] for i in unit])
+            for unit in units
+        ))
+        verdicts = [False] * len(checks)
+        for unit, part in zip(units, parts):
+            for i, ok in zip(unit, part):
+                verdicts[i] = ok
+        return verdicts
 
     async def _verify_host(self, checks: list[ShareCheck]) -> list[bool]:
         """Exact per-share host validation, CONCURRENT on the validation
         executor."""
         t0 = time.monotonic()
-        loop = asyncio.get_running_loop()
-        pool = pow_host.validation_executor()
-        verdicts = list(await asyncio.gather(*(
-            loop.run_in_executor(pool, self._host_verdict, c)
-            for c in checks
-        )))
+        verdicts = await self._host_verdicts(checks)
         self.host_seconds.observe(time.monotonic() - t0)
         with self._lock:
             self.stats["host_batches"] += 1
@@ -315,13 +352,17 @@ class ValidationBackend:
             # silently run the wrong kernel
             raise ValueError(f"no device verify tier for {algorithm!r}")
         n = len(checks)
+        x11 = algorithm in _X11_ALGOS
+        if x11 and self.x11_chain == "numpy":
+            return self._x11_numpy_buffer(checks, k)
         words = sha256_torch.headers_to_words([c.header for c in checks])
         limbs = np.stack([tgt.target_to_limbs(c.target) for c in checks])
         scrypt = algorithm in _SCRYPT_ALGOS
         if self.device.type != "cuda":
             w = torch.from_numpy(words.view(np.int32))
             t = torch.from_numpy(limbs.view(np.int32))
-            verify = scc.scrypt_verify if scrypt else sc.sha256d_verify
+            verify = (scc.scrypt_verify if scrypt else
+                      x11_cuda.x11_verify if x11 else sc.sha256d_verify)
             return verify(w, t, n, k=k).numpy().view(np.uint32)
         with self._lock:
             slot = self._staging.pop() if self._staging else _Staging(self.device)
@@ -336,6 +377,9 @@ class ValidationBackend:
                 buf = scc.scrypt_verify(w, t, n, k=k,
                                         scratch=self._scratch_for(n),
                                         stream=self.stream)
+            elif x11:
+                buf = x11_cuda.x11_verify(w, t, n, k=k, stream=self.stream,
+                                          out=slot.output(k))
             else:
                 buf = sc.sha256d_verify(w, t, n, k=k, stream=self.stream,
                                         out=slot.output(k))
@@ -345,6 +389,26 @@ class ValidationBackend:
         with self._lock:
             self._staging.append(slot)
         return result
+
+    @staticmethod
+    def _x11_numpy_buffer(checks: list[ShareCheck], k: int) -> np.ndarray:
+        """The reference's ``"numpy"`` x11 tier: verdicts from the host
+        tier's lane-axis pipeline (``x11_verify_batch``), put in the same
+        failure buffer as the kernels' (its limb half left unset, as
+        there) so that every tier is one path downstream."""
+        from otedama_tpu_torch.kernels import x11 as x11_host
+
+        headers = np.frombuffer(b"".join(c.header for c in checks),
+                                dtype=np.uint8).reshape(-1, 80)
+        verdicts, best = x11_host.x11_verify_batch(
+            headers, [c.target for c in checks])
+        fails = np.nonzero(~verdicts)[0]
+        buf = np.zeros((sc.winner_buffer_words(k),), dtype=np.uint32)
+        buf[k:2 * k] = 0xFFFFFFFF
+        buf[:min(k, len(fails))] = fails[:k]
+        buf[2 * k] = len(fails)
+        buf[2 * k + 2] = best
+        return buf
 
     async def _verify_device_group(
         self, algorithm: str, checks: list[ShareCheck]
@@ -405,11 +469,7 @@ class ValidationBackend:
                 sample = [self._rng.randrange(len(checks))]
             with self._lock:
                 self.stats["tripwire_checks"] += len(sample)
-            pool = pow_host.validation_executor()
-            host_oks = await asyncio.gather(*(
-                loop.run_in_executor(pool, self._host_verdict, checks[i])
-                for i in sample
-            ))
+            host_oks = await self._host_verdicts([checks[i] for i in sample])
             mismatch = False
             for i, host_ok in zip(sample, host_oks):
                 if host_ok != verdicts[i]:

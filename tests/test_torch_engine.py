@@ -12,10 +12,15 @@ difficulty).
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import functools
+import queue
 import threading
 import time
 
+import numpy as np
 import pytest
+import torch
 
 from otedama_tpu.engine.engine import EngineConfig as RefEngineConfig
 from otedama_tpu.engine.engine import MiningEngine as RefMiningEngine
@@ -23,6 +28,7 @@ from otedama_tpu.engine.types import Job as RefJob
 from otedama_tpu.runtime import search as ref_search
 from otedama_tpu_torch.engine.engine import EngineConfig, MiningEngine
 from otedama_tpu_torch.engine.types import Job
+from otedama_tpu_torch.kernels import sha256_torch as st
 from otedama_tpu_torch.runtime import search
 
 BATCH = 64
@@ -261,4 +267,113 @@ async def test_a_new_job_dispatches_before_the_old_calls_drain():
         for release in stub.releases:
             release.set()
         await engine.stop()
+    assert engine.supervisors["stub"].searcher_restarts == 0
+
+
+LAUNCH_S = 0.05
+STREAM_BATCH = 256
+# one share in 12 hashes: ~21 winners a 256-lane window, so a table of the
+# default 16 slots overflows
+WINNER_EVERY = 12
+EASY_TARGET = (1 << 256) // WINNER_EVERY
+
+
+class StreamStub(search._Sha256dBackend):
+    """A card's stream in miniature: launches run one at a time in the
+    order they were enqueued, each taking ``LAUNCH_S`` on the stream's
+    thread; a call enqueues its group's launches and waits for their
+    buffers, and an overflowing window's bisect enqueues its halves
+    behind whatever the stream holds by then. The first job's winners are
+    every ``WINNER_EVERY``-th nonce of its second group of windows (its
+    first group has none: it is consumed at once); a winner's digest is
+    zero. Each launch's end is logged with its job's ntime and the count
+    word of its buffer."""
+
+    name = "stub"
+
+    def __init__(self):
+        super().__init__("cpu", None)
+        self.queue: queue.Queue = queue.Queue()
+        self.done: list[tuple[float, bytes, int]] = []
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _run(self):
+        while True:
+            buf, fut, ntime = self.queue.get()
+            time.sleep(LAUNCH_S)
+            self.done.append((time.monotonic(), ntime, int(buf[-3])))
+            fut.set_result(buf)
+
+    def _digest(self, jc, nonce_word):
+        return bytes(32)
+
+    def _launch_all(self, jc, windows, k=None):
+        k = self.k if k is None else k
+        futs = []
+        for base, count in windows:
+            wins = [w for w in range(base, base + count)
+                    if jc.target and DEPTH * STREAM_BATCH <= w
+                    < 2 * DEPTH * STREAM_BATCH and w % WINNER_EVERY == 0]
+            buf = np.zeros(2 * k + 3, dtype=np.uint32)
+            buf[k:2 * k] = 0xFFFFFFFF
+            buf[:min(k, len(wins))] = wins[:k]
+            buf[2 * k] = len(wins)
+            fut = concurrent.futures.Future()
+            self.queue.put((buf, fut, jc.header76[68:72]))
+            futs.append(fut)
+        return np.stack([f.result() for f in futs])
+
+
+@pytest.mark.asyncio
+async def test_an_overflowing_old_call_emits_before_the_new_jobs_first_group():
+    """ROADMAP Queue C 35: at a job change the new job's first group is
+    queued on the stream before the old job's last call is drained
+    (Queue C 34). When that call's windows held more winners than a table
+    of the default 16 slots, its bisect queued behind the new group and
+    its shares came a whole group late. With the table sized from the
+    job's target the old call's shares are emitted before the new job's
+    first group has run."""
+    stub = StreamStub()
+    engine = MiningEngine({"stub": stub}, config=EngineConfig(
+        batch_size=STREAM_BATCH, auto_batch=False, pipeline_depth=DEPTH,
+        searcher_restart_backoff=0.02))
+    old_ntime, new_ntime = 1_700_000_000, 1_700_000_060
+    first = dict(_job_fields("first", old_ntime), share_target=EASY_TARGET)
+    second = dict(_job_fields("second", new_ntime), share_target=0)
+    emitted: list[tuple[float, str]] = []
+
+    async def on_share(share):
+        emitted.append((time.monotonic(), share.job_id))
+
+    engine.on_share = on_share
+
+    async def until(cond, what):
+        deadline = time.monotonic() + 20.0
+        while not cond():
+            assert time.monotonic() < deadline, what
+            await asyncio.sleep(0.002)
+
+    new_tag = new_ntime.to_bytes(4, "little")
+    await engine.start()
+    try:
+        engine.set_job(Job(**first))
+        # both groups of the old job on the stream, the first one running
+        await until(lambda: stub.queue.qsize() >= DEPTH,
+                    "the old job's groups never queued")
+        engine.set_job(Job(**second))
+        await until(lambda: sum(t == new_tag for _, t, _ in stub.done)
+                    >= DEPTH, "the new job's first group never ran")
+        new_group_done = [t for t, tag, _ in stub.done
+                          if tag == new_tag][DEPTH - 1]
+        await until(lambda: len([1 for _, job in emitted if job == "first"])
+                    >= DEPTH * (STREAM_BATCH // WINNER_EVERY),
+                    "the old job's shares")
+    finally:
+        await engine.stop()
+    old_counts = [n for _, tag, n in stub.done if tag != new_tag]
+    assert max(old_counts) > search.sc.K_WINNERS  # 16 slots would overflow
+    old = [t for t, job in emitted if job == "first"]
+    assert max(old) < new_group_done, (
+        f"the old job's last share came {max(old) - new_group_done:.3f} s "
+        "after the new job's first group had run")
     assert engine.supervisors["stub"].searcher_restarts == 0

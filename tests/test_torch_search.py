@@ -55,7 +55,11 @@ def test_torch_backend_matches_xla_backend(case):
     target = (top << 224) | ((1 << 224) - 1) if top else 0
     port, ref = _job_pair(seed, target)
     before = st.calls.value
-    got = search.TorchBackend("cpu", chunk=1024).search(port, base, count)
+    # a fixed table of the kernel's default depth: case 4 must overflow it
+    # (without a winner_depth the table is sized from the target)
+    got = search.TorchBackend("cpu", chunk=1024,
+                              winner_depth=sc.K_WINNERS).search(port, base,
+                                                                count)
     want = _XLA.search(ref, base, count)
     _same(got, want)
     if top == 1 << 27:
@@ -82,10 +86,15 @@ def test_collect_drops_a_corrupt_winner(caplog):
     and dropped, never emitted."""
     port, _ = _job_pair(8, 0)
     backend = search.TorchBackend("cpu")
-    buf = np.zeros(sc.winner_buffer_words(backend.k), dtype=np.uint32)
-    buf[0], buf[2 * backend.k] = 42, 1
+
+    def launch_all(jc, windows, k):
+        buf = np.zeros((1, sc.winner_buffer_words(k)), dtype=np.uint32)
+        buf[0, 0], buf[0, 2 * k] = 42, 1
+        return buf
+
+    backend._launch_all = launch_all
     with caplog.at_level("ERROR"):
-        res = backend._collect(port, 0, 100, buf)
+        res = backend.search(port, 0, 100)
     assert res.winners == [] and "failed host verification" in caplog.text
 
 
@@ -112,8 +121,11 @@ def test_explicit_cpu_backends_build():
     assert isinstance(mgr.backend_for("sha256d"), search.TorchBackend)
     assert isinstance(mgr.backend_for("sha256", kind="python"),
                       search.PythonBackend)
-    with pytest.raises(KeyError):  # x11 is not ported yet
-        mgr.backend_for("x11")
+    assert isinstance(mgr.backend_for("x11"), search.X11TorchBackend)
+    assert isinstance(mgr.backend_for("x11", kind="python"),
+                      search.X11NumpyBackend)
+    with pytest.raises(KeyError):  # ethash is not ported yet
+        mgr.backend_for("ethash")
     warm = mgr.prepare_backend("sha256d", warm_count=lambda b: 64)
     assert isinstance(warm, search.TorchBackend)
 

@@ -203,7 +203,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "otedama_tpu_torch.security.auth",
             "otedama_tpu_torch.api.metrics",
             "otedama_tpu_torch.api.http",
-            "otedama_tpu_torch.api.server"} <= set(modules)
+            "otedama_tpu_torch.api.server",
+            "otedama_tpu_torch.utils.certification",
+            "otedama_tpu_torch.kernels.x11_torch",
+            "otedama_tpu_torch.kernels.x11_cuda"} | {
+            f"otedama_tpu_torch.kernels.x11.{stage}" for stage in (
+                "blake", "bmw", "groestl", "skein", "jh", "keccak", "luffa",
+                "cubehash", "shavite", "simd", "echo")} <= set(modules)
     # the API serves the port's own copies of the web pages
     pages = ("static/index.html", "admin/index.html", "admin/login.html")
     assert all((REPO / "otedama_tpu_torch" / "web" / p).is_file()

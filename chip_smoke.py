@@ -13,8 +13,10 @@ Phases:
 
 1. card: name, power limit, clocks, versions; build the kernels; the
    registers and spills of the hot kernels (``-Xptxas -v``) and their hot
-   loops' SASS by integer pipe (``cuobjdump -sass``); B6's instructions a
-   lane by stage and pipe, from the SASS of its counting build;
+   loops' SASS by integer pipe (``cuobjdump -sass``); every B6 kernel's
+   registers, spills, stack and resident warps an SM (none may spill or
+   keep a stack); B6's instructions a lane by stage and pipe, from the
+   SASS of its counting build;
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
    (few winners, target at a lane's hash and +-1, ragged counts — 1, 3,
@@ -172,7 +174,8 @@ Phases:
    port's host chain (not Dash's network hash: the chain is uncertified);
 30. B6 against the plain PyTorch version on the card, buffer for buffer:
    few winners, a target at a lane's digest and +-1, ragged counts (1,
-   37, one past a block, 2^20 + 77), a window that wraps 2^32, an empty
+   37, one past a block, one past a chunk of the launch sequence, 2^20 +
+   77), a window that wraps 2^32, an empty
    window, table overflow, each of the five shavite counter orders,
    ``X11CudaBackend``'s bisect, the main path's launch; the verify kernel
    on Byzantine rows, an overflow and a count short of the rows;
@@ -186,13 +189,15 @@ Phases:
    forged) through ``PoolManager.on_share_batch`` and B6's verify kernel:
    every verdict equals the host chain's, the books hold the honest
    shares, the rails stay quiet, one launch a flush;
-33. B6's times (CUDA events, median of rounds) at 2^20, 2^22 and 2^24
-   lanes and a 1,024-share verify call beside the bound (from the
-   instructions a lane executes, counted in phase 1 from the SASS of
-   B6's counting build), phase 31's steady rates against B6's, the SM
-   clock and
-   power sampled; a sha256d -> x11 -> sha256d warm switch and an x11 probe
-   verified against the host chain.
+33. B6's times (CUDA events, median of rounds) at 2^20, 2^22, the main
+   path's launch and 2^24 lanes, each stage's kernel alone over the main
+   path's launch, and a 1,024-share verify call, beside the bound (from
+   the instructions a lane executes, counted in phase 1 from the SASS of
+   B6's counting build, or the one-kernel design's count where that is
+   smaller), phase 31's steady rates against B6's (the first window must
+   reach 95%), the SM clock and power sampled; a
+   sha256d -> x11 -> sha256d warm switch and an x11 probe verified
+   against the host chain.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4207,6 +4212,7 @@ X11_KNOWN = (
 # target, where most groups of launches hold winners to re-check
 X11_SOLO_WINDOWS = ((2.0, 20.0), (32.0, 12.0))
 X11_FLUSHES = 8              # 1,024-share x11 flushes through the ledger
+SOLO_X11_MIN_SHARE = 0.95    # phase 31's first window against B6's rate
 
 
 def x11_value(header: bytes) -> int:
@@ -4214,6 +4220,47 @@ def x11_value(header: bytes) -> int:
     from otedama_tpu_torch.kernels.x11 import x11_digest
 
     return int.from_bytes(x11_digest(header), "little")
+
+
+# B6's kernels that hold fewer than 16 warps an SM, and why (PERF.md
+# section 6): at 16 warps a thread has 128 registers, and these spill there
+B6_FEWER_WARPS = {"blake_search_kernel": 8, "blake_verify_kernel": 8,
+                  "stage_kernel<2> (bmw)": 12, "groestl_kernel": 12}
+
+
+def b6_resources(dev) -> None:
+    """Phase 1's part on B6: each kernel's registers, local memory (stack
+    and spills), shared memory and resident warps from the CUDA runtime,
+    ptxas's stack and spills, and its SASS by pipe (a rolled round loop's
+    iteration, or the whole function); fails if a kernel spills, keeps a
+    stack, or holds fewer warps than ``B6_FEWER_WARPS`` allows."""
+    from otedama_tpu_torch.kernels import cuda_build
+    from otedama_tpu_torch.kernels import x11_cuda as xc
+
+    for k in xc.kernel_info(dev):
+        print(f"   B6 {k['kernel']}: {k['threads']} threads a block, "
+              f"{k['registers']} registers, {k['local_bytes']} B of local "
+              f"memory a thread (stack and spills), {k['smem_bytes']} B of "
+              f"shared memory a block, {k['warps_per_sm']} warps an SM",
+              flush=True)
+        check(k["local_bytes"] == 0, f"B6 {k['kernel']} spills or keeps a "
+              f"stack: {k['local_bytes']} B of local memory")
+        check(k["warps_per_sm"] >= B6_FEWER_WARPS.get(k["kernel"], 16),
+              f"B6 {k['kernel']}: {k['warps_per_sm']} warps an SM")
+    # ptxas's report, when this process compiled the library (the runtime's
+    # local memory above is the check either way)
+    stacks = [line.strip() for line in
+              xc.build_info.get("ptxas", "").splitlines() if "stack frame" in line]
+    check(all(line.startswith("0 bytes stack frame, 0 bytes spill stores")
+              for line in stacks), f"B6 ptxas: {stacks}")
+    if stacks:
+        print(f"   B6 ptxas: {len(stacks)} functions, every one with 0 bytes "
+              "of stack frame and spills", flush=True)
+    for kernel in ("blake_search_kernel", "stage_kernel", "groestl_kernel",
+                   "shavite_kernel", "simd_kernel", "echo_kernel"):
+        for line in cuda_build.kernel_report(xc.build_info, kernel):
+            if line.startswith("SASS"):
+                print(f"   B6 {line}", flush=True)
 
 
 def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
@@ -4284,6 +4331,10 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
               f"{b[2 * k + 2]:#010x} equal", flush=True)
         return b, plain_s
 
+    def b6_kernels(lanes):
+        """the kernels a B6 call of ``lanes`` lanes launches on the card"""
+        return 2 + 11 * len(xc.chunk_plan(lanes))
+
     def verify_vs_plain(name, words, limbs, count, k):
         w, t = on_card(words), on_card(limbs)
         a = host_buf(xc.x11_verify(w, t, count, k=k))
@@ -4351,7 +4402,7 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
               f"target at the digest {delta:+d}: {b.tolist()}")
     # a target for a few winners at each count
     for count, top in ((1, 255), (37, 253), (xc.THREADS + 1, 251),
-                       ((1 << 20) + 77, 238)):
+                       (xc.CHUNK + 1, 240), ((1 << 20) + 77, 238)):
         batch = max(count, 1 << 12)
         search_vs_plain(f"count {count}", prefix, int(rng.integers(1 << 32)),
                         count - 1, limbs_of(1 << top), batch)
@@ -4383,17 +4434,17 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
     backend.close()
     print(f"   X11CudaBackend bisect: {int(pb[6000])} winners in 3000 lanes "
           "equal, each re-derived through the host chain", flush=True)
-    # the main path's launch: X11_CUDA_BATCH lanes, ~4 winners
+    # the main path's launch: X11_CUDA_BATCH lanes, ~12 winners
     from otedama_tpu_torch.runtime.search import X11_CUDA_BATCH
+    main_limbs = limbs_of((1 << 256) // X11_CUDA_BATCH * 12)
     torch.cuda.synchronize(dev)
     t0 = time.monotonic()
-    host_buf(xc.x11_search(prefix, 99, X11_CUDA_BATCH - 1,
-                           limbs_of((1 << 236) - 1), batch=X11_CUDA_BATCH,
-                           k=16, device=dev))
+    host_buf(xc.x11_search(prefix, 99, X11_CUDA_BATCH - 1, main_limbs,
+                           batch=X11_CUDA_BATCH, k=16, device=dev))
     first_ms = (time.monotonic() - t0) * 1e3
     _, plain_main_s = search_vs_plain(
         f"the main path's launch ({X11_CUDA_BATCH} lanes)", prefix, 99,
-        X11_CUDA_BATCH - 1, limbs_of((1 << 236) - 1), X11_CUDA_BATCH)
+        X11_CUDA_BATCH - 1, main_limbs, X11_CUDA_BATCH)
     print(f"   main launch: kernel {first_ms:.1f} ms (a call, host clock), "
           f"plain version {plain_main_s:.1f} s", flush=True)
     # the verify kernel: Byzantine rows, an overflow, a count short of rows
@@ -4594,6 +4645,36 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
           f"{snap['tripwire_checks']}, mismatches 0, device errors 0, "
           f"overflows 0; B6 verify launches {ledger_launches}, plain-version "
           f"calls {ledger_plain}", flush=True)
+    # the validator's x11 dispatches at once, as P2P share batches come
+    # beside the ledger's flushes: each flush on an executor thread of its
+    # own, in rounds, every buffer against the plain version's
+    from otedama_tpu_torch.runtime.validate import ShareCheck, \
+        dispatch_executor
+    v = pm.validator
+    rows = []
+    for batch, _ in flushes:
+        targets = [tgt.difficulty_to_target(s.difficulty) for s in batch]
+        words = xt.headers_to_words(np.stack([
+            np.frombuffer(s.header, np.uint8) for s in batch]))
+        limbs = np.stack([tgt.target_to_limbs(t) for t in targets])
+        plain = host_buf(xt.x11_verify_step(on_card(words), on_card(limbs),
+                                            len(batch) - 1, k=v.k))
+        rows.append(([ShareCheck(s.header, t, "x11")
+                      for s, t in zip(batch, targets)], plain))
+    xc.verify_launches.reset()
+    concurrent_rounds = 4
+    for r in range(concurrent_rounds):
+        futures = [dispatch_executor().submit(v._device_buffer, "x11",
+                                              checks, v.k)
+                   for checks, _ in rows]
+        for i, (f, (_, plain)) in enumerate(zip(futures, rows)):
+            equal_buffers("verify", f"concurrent dispatch {i}, round {r}",
+                          f.result(), plain, v.k)
+    check(xc.verify_launches.value == concurrent_rounds * len(rows),
+          f"concurrent dispatches: {xc.verify_launches.value} B6 launches")
+    print(f"   {concurrent_rounds} rounds of {len(rows)} x11 dispatches at "
+          f"once on one validator (its dispatch executor's threads, one "
+          f"stream): every buffer = the plain version's", flush=True)
     del pm
 
     # -- 33. times ---------------------------------------------------------------
@@ -4620,27 +4701,36 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
             per.append(e0.elapsed_time(e1) / reps)
         return sorted(per)[rounds // 2], per
 
-    per_lane = counts["chain"]
-    total, alu, fma = (per_lane[k] for k in ("total", "alu", "fma"))
+    counted = counts["chain"]
+    total, alu, fma = (counted[k] for k in ("total", "alu", "fma"))
     longest = max(v["seconds"] for v in counts.values())
     print(f"   B6 a lane, from the SASS of its counting build (twelve builds "
           f"from phase 1 on, the longest {longest:.1f} s): {total} "
           f"instructions, ALU pipe {alu} ({alu / total:.1%}), FMA pipe "
-          f"{fma} ({fma / total:.1%}), {per_lane['smem_words']} "
+          f"{fma} ({fma / total:.1%}), {counted['smem_words']} "
           f"shared-memory words; by stage "
           + ", ".join(f"{name} {v['total']}/{v['alu']}/{v['fma']}/"
                       f"{v['smem_words']} ({v['seconds']:.0f} s)"
                       for name, v in counts.items() if name != "chain")
           + " (all/ALU/FMA/shared words, the build's time)", flush=True)
+    per_lane, origin = xc.bound_chain(counted)
+    first = xc.ONE_KERNEL_CHAIN
+    print(f"   the bound takes {per_lane['alu'] + per_lane['fma']} integer "
+          f"instructions and {per_lane['smem_words']} shared-memory words a "
+          f"lane: {origin} (the one-kernel design's: "
+          f"{first['alu'] + first['fma']} and {first['smem_words']})",
+          flush=True)
     with Sampler() as sampled:
         search_times = {lanes: time_search(lanes)
-                        for lanes in (1 << 20, X11_CUDA_BATCH, 1 << 24)}
+                        for lanes in sorted({1 << 20, 1 << 22, X11_CUDA_BATCH,
+                                             1 << 24})}
+        stage_ms = xc.stage_times(dev, X11_CUDA_BATCH, stream=stream)
 
-    def bound(lanes, verify=False):
+    def bound(lanes, verify=False, chain=None):
         """(bound ms, by, text): the largest of the three bounds, by
         "bytes" or else "operations" (a table lookup is one), as the
         kernels line takes them; the text names each term"""
-        terms = xc.bound_ms(lanes, sms, clock_mhz, per_lane,
+        terms = xc.bound_ms(lanes, sms, clock_mhz, chain or per_lane,
                             verify=verify)
         top = max(("operations", "shared-memory reads", "bytes"),
                   key=terms.get)
@@ -4653,6 +4743,16 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
               f"= {lanes / ms / 1e3:.2f} MH/s; bound {b_ms:.3f} ms by {by} "
               f"({b_ms / ms:.1%} of it; {text})", flush=True)
     print(f"   {sampled.summary()}", flush=True)
+    stage_sum = 0.0
+    for name, per in stage_ms.items():
+        ms = sorted(per)[len(per) // 2]
+        stage_sum += ms
+        b_ms, _, text = bound(X11_CUDA_BATCH, chain=counts[name])
+        print(f"   stage {name} alone over {X11_CUDA_BATCH} lanes: {ms:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in per)}); its bound "
+              f"{b_ms:.3f} ms ({b_ms / ms:.1%}; {text})", flush=True)
+    print(f"   the stages' sum {stage_sum:.3f} ms against the chain's "
+          f"{search_times[X11_CUDA_BATCH][0]:.3f} ms; {card}", flush=True)
     search_ms = search_times[X11_CUDA_BATCH][0]
     b6_rate = X11_CUDA_BATCH / search_ms * 1e3
     for rate, (_, steady) in solo.items():
@@ -4660,6 +4760,10 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
               f"{steady / 1e6:.2f} MH/s = {steady / b6_rate:.1%} of B6's "
               f"{b6_rate / 1e6:.2f} MH/s at {X11_CUDA_BATCH} lanes",
               flush=True)
+    # at a solo miner's share rate the engine keeps B6 busy
+    steady = solo[X11_SOLO_WINDOWS[0][0]][1]
+    check(steady >= SOLO_X11_MIN_SHARE * b6_rate,
+          f"solo x11 at {steady / b6_rate:.1%} of B6's rate")
     search_bound, search_by, _ = bound(X11_CUDA_BATCH)
     # a 1,024-share verify call at the ledger's size
     w, t = on_card(xt.headers_to_words(hv)), on_card(tl)
@@ -4680,11 +4784,13 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
     verify_bound, verify_by, text = bound(1024, verify=True)
     print(f"   verify, 1,024 shares a call: {verify_ms:.4f} ms "
           f"({', '.join(f'{x:.4f}' for x in per)}); bound {verify_bound:.4f} "
-          f"ms by {verify_by} ({text}): 1,024 lanes fill {1024 // xc.THREADS} of "
-          f"{sms} SMs, so a call is one lane's chain; plain version "
+          f"ms by {verify_by} ({text}): 1,024 lanes fill at most "
+          f"{1024 // xc.THREADS} of {sms} SMs, so a call is about one "
+          f"lane's chain, stage after stage; plain version "
           f"{plain_verify_s * 1e3:.0f} ms", flush=True)
-    print(f"   bound: a lane's {alu} ALU-pipe and {fma} FMA-pipe "
-          f"instructions and {per_lane['smem_words']} shared-memory "
+    print(f"   bound: a lane's {per_lane['alu']} ALU-pipe and "
+          f"{per_lane['fma']} FMA-pipe instructions and "
+          f"{per_lane['smem_words']} shared-memory "
           f"words on {sms} SMs x {xc.INT_LANES_PER_SM} integer lanes (the "
           f"ALU pipe {xc.ALU_LANES_PER_SM} of them) x {clock_mhz:.0f} MHz; "
           f"{card}", flush=True)
@@ -4762,7 +4868,10 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
         "library_ms": None,
         "path": (f"solo x11 Application (phase 31): {main_launches} "
                  f"launches of {X11_CUDA_BATCH} lanes; the x11 side of a "
-                 f"warm switch (phase 33): {switch_launches}"),
+                 f"warm switch (phase 33): {switch_launches}; a launch is "
+                 f"one call, {b6_kernels(X11_CUDA_BATCH)} kernel launches "
+                 f"on the card (2 + 11 x {X11_CUDA_BATCH // xc.CHUNK} "
+                 f"chunks)"),
     }, {
         "name": "x11_verify",
         "route": "cuda",
@@ -4776,7 +4885,9 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
         "bound_by": verify_by,
         "library_ms": None,
         "path": (f"pool ledger on_share_batch, x11 flushes of 1,024 (phase "
-                 f"32): {ledger_launches} launches"),
+                 f"32): {ledger_launches} launches, each one call of "
+                 f"{b6_kernels(1024)} kernel launches on the card (2 + 11 x "
+                 f"1 chunk)"),
     }]
 
 
@@ -4876,14 +4987,10 @@ def main() -> int:
     # counting build, stage by stage (x11_cuda.chain_instructions, phase 33)
     for info, kernel, loop in ((sc.build_info, "search_kernel", True),
                                (sc.build_info, "verify_kernel", False),
-                               (scc.build_info, "romix_kernel", True),
-                               (xc.build_info, "x11_search_kernel", False),
-                               (xc.build_info, "x11_verify_kernel", False)):
+                               (scc.build_info, "romix_kernel", True)):
         for line in cuda_build.kernel_report(info, kernel, loop):
             print(f"   {line}", flush=True)
-    for line in xc.build_info.get("ptxas", "").splitlines():
-        if "cumulative stack size" in line:
-            print(f"   B6 {line.split(':', 1)[-1].strip()}", flush=True)
+    b6_resources(dev)
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -5223,10 +5330,131 @@ def turns(parent: str, fn: str, *args: float) -> int:
     return rc
 
 
+# --x11-windows: (lanes a launch, shares a second, seconds, busy
+# processes beside the engine) for each window
+X11_WINDOW_RUNS = ((3 << 22, 2.0, 20.0, 0), (3 << 22, 2.0, 20.0, 8),
+                   (1 << 24, 2.0, 20.0, 8), (5 << 22, 2.0, 20.0, 8),
+                   (3 << 23, 2.0, 20.0, 8), (3 << 23, 32.0, 12.0, 8),
+                   (3 << 23, 2.0, 20.0, 0))
+
+
+def x11_windows() -> int:
+    """``python3 chip_smoke.py --x11-windows``: phase 31's anatomy. B6's
+    time a launch at each size of ``X11_WINDOW_RUNS``, then a solo x11
+    ``Application`` window for each run with ``X11CudaBackend``'s launch
+    set to its size and that many ``while True: pass`` processes beside
+    it: the steady rate against B6's, each host re-check pass of a group's
+    winners (``_X11Backend._digests``) timed, and the gaps between
+    drained calls longer than 1.15 of their median (PERF.md section 6).
+    Needs one card; ~3 minutes."""
+    import statistics
+
+    import torch
+
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels import x11_cuda as xc
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.runtime import search as rs
+
+    check(torch.cuda.is_available(), "this run needs a CUDA card")
+    print(smi("name,power.limit"), flush=True)
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.Stream(dev)
+    prefix = bytes(range(76))
+
+    def launch_ms(lanes):
+        """median ms a B6 search launch of ``lanes`` (no winner)"""
+        state = torch.empty(xc.state_words(lanes), dtype=torch.int64,
+                            device=dev)
+
+        def launch():
+            xc.x11_search(prefix, 7, lanes - 1, [0] * 8, batch=lanes, k=16,
+                          device=dev, stream=stream, state=state)
+
+        return median_ms(launch, stream, 2)[0]
+
+    b6 = {lanes: launch_ms(lanes) for lanes in
+          sorted({run[0] for run in X11_WINDOW_RUNS})}
+    for lanes, ms in b6.items():
+        print(f"B6 {lanes} lanes: {ms:.3f} ms, {lanes / ms / 1e3:.2f} MH/s",
+              flush=True)
+    passes = []
+    digests = rs._X11Backend._digests
+
+    def timed(self, jc, words):
+        t0 = time.monotonic()
+        out = digests(self, jc, words)
+        passes.append(time.monotonic() - t0)
+        return out
+
+    rs._X11Backend._digests = timed
+    try:
+        for lanes, shares_per_s, seconds, busy in X11_WINDOW_RUNS:
+            rs.X11CudaBackend.preferred_batch = lanes
+            rs.X11CudaBackend.max_batch = lanes
+            b6_rate = lanes / b6[lanes] * 1e3
+            nbits = tgt.target_to_bits(
+                (1 << 256) // int(b6_rate / shares_per_s))
+            cfg = AppConfig()
+            cfg.mining.algorithm = "x11"
+            cfg.mining.device = "cuda"
+            cfg.work.enabled = True
+            cfg.work.poll_seconds = 0.5
+            app = Application(cfg, chain=MockChainClient(nbits=nbits))
+            watch = HashWatch()
+
+            async def run():
+                await app.start()
+                try:
+                    while app.engine.state.value != "running":
+                        await asyncio.sleep(0.05)
+                    watch.start(app.engine)
+                    await asyncio.sleep(seconds)
+                    watch.stop()
+                finally:
+                    await app.stop()
+
+            passes.clear()
+            procs = [subprocess.Popen([sys.executable, "-c",
+                                       "while True: pass"])
+                     for _ in range(busy)]
+            try:
+                asyncio.run(run())
+            finally:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+            rate, text = watch.summary()
+            moves = watch.moves
+            gaps = [b[0] - a[0] for a, b in zip(moves, moves[1:])]
+            med = statistics.median(gaps)
+            slow = [f"{(a[0] - moves[0][0]):.2f} s +{g * 1e3:.0f} ms"
+                    for a, g in zip(moves, gaps) if g > 1.15 * med]
+            passes.sort()
+            print(f"== {lanes} lanes a launch ({3 * b6[lanes]:.0f} ms a "
+                  f"group), ~{shares_per_s:g} shares/s, {busy} busy "
+                  f"processes: {rate / 1e6:.2f} MH/s = {rate / b6_rate:.1%}"
+                  f" of B6; {text}", flush=True)
+            print(f"   {len(passes)} host passes: median "
+                  f"{passes[len(passes) // 2] * 1e3:.0f} ms, p90 "
+                  f"{passes[int(len(passes) * 0.9)] * 1e3:.0f} ms, max "
+                  f"{passes[-1] * 1e3:.0f} ms; job changes "
+                  f"{len(watch.switches)}; long gaps: {', '.join(slow)}",
+                  flush=True)
+    finally:
+        rs._X11Backend._digests = digests
+    print(smi("name,power.limit"), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turns"]:
         os._exit(turns(sys.argv[2], sys.argv[3],
                        *(float(a) for a in sys.argv[4:])))
+    if sys.argv[1:2] == ["--x11-windows"]:
+        os._exit(x11_windows())
     try:
         rc = main()
     except Exception:

@@ -9,28 +9,45 @@
 // shavite512, simd512 and echo512 of each 64-byte digest, the first 32 bytes
 // compared EXACTLY (256-bit, little-endian value) against a target, and the
 // lanes compacted into the shared uint32[2k+3] buffer (sha256_device.cuh):
-//   - x11_search_kernel: lane i hashes the 76-byte prefix with nonce word
-//     base + i (mod 2^32, big-endian at bytes 76:80), built here on the
-//     card; WINNERS go into the table as lane offsets;
-//   - x11_verify_kernel: lane i hashes its own row of 20 big-endian header
-//     words against its own 8 target limbs; FAILURES go into the table as
-//     lane offsets.
+//   - the search: lane i hashes the 76-byte prefix with nonce word base + i
+//     (mod 2^32, big-endian at bytes 76:80), built here on the card;
+//     WINNERS go into the table as lane offsets;
+//   - the verify: lane i hashes its own row of 20 big-endian header words
+//     against its own 8 target limbs; FAILURES go into the table as lane
+//     offsets.
 // Winners take slots with atomicAdd and a one-thread finalize launch sorts
 // them by offset, so for n <= k the buffer equals the reference's lane-order
 // compaction word for word; the min top limb covers the in-range lanes.
 //
-// Design (a first, simple one): one thread a lane, each stage a __device__
-// function on native 64-bit (or 32-bit) words in registers, the stages in
-// the form kernels/x11_torch.py writes them (its docstring): groestl through
-// eight 256-entry 64-bit tables and the AES rounds of shavite and echo
-// through the four AES T-tables, all in shared memory, loaded once a block
-// from the table block the wrapper builds (x11_cuda.table_block); jh
-// bitsliced, its round constants and IV read from that block; simd's NTT
-// over Z_257 as radix-2 butterflies on a per-thread array, the final
-// block's expanded words a table. What bounds it: integer operations (no
-// byte of the chain leaves the SM but the header and the table), plus the
-// shared-memory table lookups of groestl, shavite and echo; chip_smoke.py
-// phase 1 prints its registers and spills and phase 33 its time beside the
+// Design: a kernel a stage, each sized for its own registers and fully
+// inlined (no call, no stack, no local array). Between the kernels each
+// lane's 64-byte value lives in a state buffer of eight 64-bit words a lane
+// (word-major: word w of lane i at w * cap + i), which the caller owns (the
+// backend, or the call) and the wrapper walks through in chunks small
+// enough to stay in L2 (x11_cuda.chunk_plan). The first kernel makes the
+// header (search) or reads its row (verify) and runs blake; the last runs
+// echo, compares and compacts. What bounds it: integer instructions on the
+// ALU and FMA pipes, and for groestl the shared-memory reads of its table
+// lookups. So:
+//   - groestl, shavite and echo read their T-tables from shared memory
+//     copies replicated across the banks (x11_cuda.table_block builds them):
+//     groestl's four 64-bit tables (tables 4-7 are tables 0-3 with their
+//     halves swapped) sixteen times, one copy per bank pair, read by lane
+//     mod 16; the four AES tables thirty-two times, one copy per bank, read
+//     by lane mod 32. A warp's lookup is then free of bank conflicts. They
+//     run as 512-thread blocks, one an SM (128 KiB of tables), looping over
+//     the lanes; a lookup's address is an IMAD by a stride passed at run
+//     time (the FMA pipe, beside the ALU pipe's byte extraction);
+//   - simd runs on a group of 8 threads a lane: its 256-point NTT over
+//     Z_257 splits as 256 = 8 x 32 with 64 nonzero inputs, so thread j
+//     computes outputs j + 8m (m < 32) alone, a 32-point NTT in registers
+//     (reductions mod 257 as (x & 255) - (x >> 8), ranges known); it then
+//     holds exactly the expanded words that the compression's column j
+//     reads, and the compression runs a column a thread, the lane
+//     permutation a __shfl_xor_sync within the group;
+//   - the other stages run a thread a lane on their words in registers.
+// chip_smoke.py phase 1 prints every kernel's registers, spills, stack and
+// resident warps, phase 33 the chain's and each stage's time beside the
 // bound.
 #include <cstdint>
 #include <cstring>
@@ -39,30 +56,33 @@
 #include "sha256_device.cuh"
 
 // A counting build (-DX11_COUNT=S, x11_cuda.chain_instructions) unrolls
-// every round loop and inlines every stage, and holds only
-// x11_count_kernel, stage S of the chain (1-11 in chain order; 0: none) of
-// one lane in straight-line code: its SASS is the instructions a lane
-// executes there. It is compiled for its SASS and never launched.
+// every round loop and holds only x11_count_kernel, stage S of the chain
+// (1-11 in chain order; 0: none) of one lane in straight-line code (simd:
+// one of its group's 8 threads): its SASS is the instructions a lane (a
+// thread) executes there. It is compiled for its SASS and never launched.
 #ifdef X11_COUNT
 #define X11_ROUNDS _Pragma("unroll")
-#define X11_NOINLINE __forceinline__
 #else
 #define X11_ROUNDS
-#define X11_NOINLINE __noinline__
 #endif
 
 namespace {
 
-// the table block (uint64 words; x11_cuda.table_block builds it)
-constexpr int kGroOff = 0;           // [8][256] groestl tables
-constexpr int kAesOff = 2048;        // [256] AES T0 (32-bit values)
-constexpr int kJhIvOff = 2304;       // [16] jh IV, big-endian words
-constexpr int kJhCOff = 2320;        // [42][4] jh round constants
-constexpr int kTwistOff = 2488;      // [256] simd twist 163^k mod 257
-constexpr int kWFinalOff = 2744;     // [256] simd final block's words
-constexpr int kCubeIvOff = 3000;     // [32] cubehash IV
-constexpr int kOmegaOff = 3032;      // [256] 41^k mod 257
-constexpr int kTableWords = 3288;
+// the table block (uint32 words; x11_cuda.table_block builds it)
+constexpr int kGroOff = 0;           // [4][256][16] groestl, 64-bit entries
+constexpr int kAesOff = 32768;       // [4][256][32] AES T-tables
+constexpr int kJhIvOff = 65536;      // [16] jh IV, big-endian 64-bit words
+constexpr int kJhCOff = 65568;       // [42][4] jh round constants, 64-bit
+constexpr int kCubeIvOff = 65904;    // [32] cubehash IV
+constexpr int kSimdCOff = 65936;     // [64][8] 41^(n j) mod 257
+constexpr int kTwistOff = 66448;     // [256] simd twist 163^k mod 257
+constexpr int kWFinalOff = 66704;    // [256] simd final block's words
+constexpr int kTableWords = 66960;
+// the replicated tables a block copies into shared memory (either region)
+constexpr int kTabBytes = 131072;
+// a lookup's stride in bytes (x11_cuda.ROW_BYTES): entry (t, x) of table t
+// at byte t * 32768 + x * 128 + copy * (8 or 4)
+constexpr uint32_t kRowBytes = 128;
 
 __constant__ uint64_t kBlakeIV[8] = {
     0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull, 0xA54FF53A5F1D36F1ull,
@@ -137,32 +157,14 @@ __device__ __forceinline__ uint64_t join64(uint32_t lo, uint32_t hi) {
   return static_cast<uint64_t>(lo) | (static_cast<uint64_t>(hi) << 32);
 }
 
-// what a block keeps in shared memory: groestl's eight tables and AES's four
-struct Tables {
-  uint64_t gro[8][256];
-  uint32_t aes[4][256];
+// Work moved from the SM's ALU pipe to its FMA pipe (IMAD, IMAD.HI) where
+// it paid on the card (jh's bit swaps; blake's and skein's adds, luffa's
+// and cubehash's rotates ran slower there): the powers of two as launch
+// parameters, so that ptxas keeps the multiplies (it folds literals into
+// shifts on the ALU pipe).
+struct Fma {
+  uint32_t pow2[32];     // 2^r
 };
-
-template <int kT>
-__device__ __forceinline__ void load_tables(Tables& s, const uint64_t* tb) {
-  // every launch has kT threads a block: loops of fixed counts
-  static_assert(256 % kT == 0, "kT must divide the tables");
-#pragma unroll
-  for (int j = 0; j < 2048 / kT; ++j) {
-    const int i = j * kT + threadIdx.x;
-    s.gro[i >> 8][i & 255] = tb[kGroOff + i];
-  }
-#pragma unroll
-  for (int j = 0; j < 256 / kT; ++j) {
-    const int i = j * kT + threadIdx.x;
-    const uint32_t t = static_cast<uint32_t>(tb[kAesOff + i]);
-    s.aes[0][i] = t;
-    s.aes[1][i] = rotl32(t, 8);
-    s.aes[2][i] = rotl32(t, 16);
-    s.aes[3][i] = rotl32(t, 24);
-  }
-  __syncthreads();
-}
 
 // ---- 1. blake512 of the 80-byte header ---------------------------------------
 
@@ -435,309 +437,77 @@ __device__ __forceinline__ void bmw512_64(uint64_t h[8]) {
 
 // ---- 3. groestl512: sixteen 64-bit columns, row r at bits 8r --------------------
 
-__device__ X11_NOINLINE void groestl_perm_p(uint64_t x[16], const uint64_t (*G)[256]) {
-  X11_ROUNDS
-  for (int r = 0; r < 14; ++r) {
-#pragma unroll
-    for (int c = 0; c < 16; ++c) x[c] ^= static_cast<uint64_t>((c << 4) ^ r);
-    uint64_t t[16];
-    t[0] = G[0][(uint32_t)(x[0] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[1] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[2] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[3] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[4] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[5] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[6] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[11] >> 56) & 0xFF];
-    t[1] = G[0][(uint32_t)(x[1] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[2] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[3] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[4] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[5] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[6] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[7] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[12] >> 56) & 0xFF];
-    t[2] = G[0][(uint32_t)(x[2] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[3] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[4] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[5] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[6] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[7] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[8] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[13] >> 56) & 0xFF];
-    t[3] = G[0][(uint32_t)(x[3] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[4] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[5] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[6] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[7] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[8] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[9] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[14] >> 56) & 0xFF];
-    t[4] = G[0][(uint32_t)(x[4] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[5] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[6] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[7] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[8] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[9] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[10] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[15] >> 56) & 0xFF];
-    t[5] = G[0][(uint32_t)(x[5] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[6] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[7] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[8] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[9] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[10] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[11] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[0] >> 56) & 0xFF];
-    t[6] = G[0][(uint32_t)(x[6] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[7] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[8] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[9] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[10] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[11] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[12] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[1] >> 56) & 0xFF];
-    t[7] = G[0][(uint32_t)(x[7] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[8] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[9] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[10] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[11] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[12] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[13] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[2] >> 56) & 0xFF];
-    t[8] = G[0][(uint32_t)(x[8] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[9] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[10] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[11] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[12] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[13] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[14] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[3] >> 56) & 0xFF];
-    t[9] = G[0][(uint32_t)(x[9] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[10] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[11] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[12] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[13] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[14] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[15] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[4] >> 56) & 0xFF];
-    t[10] = G[0][(uint32_t)(x[10] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[11] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[12] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[13] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[14] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[15] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[0] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[5] >> 56) & 0xFF];
-    t[11] = G[0][(uint32_t)(x[11] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[12] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[13] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[14] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[15] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[0] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[1] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[6] >> 56) & 0xFF];
-    t[12] = G[0][(uint32_t)(x[12] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[13] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[14] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[15] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[0] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[1] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[2] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[7] >> 56) & 0xFF];
-    t[13] = G[0][(uint32_t)(x[13] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[14] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[15] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[0] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[1] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[2] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[3] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[8] >> 56) & 0xFF];
-    t[14] = G[0][(uint32_t)(x[14] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[15] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[0] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[1] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[2] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[3] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[4] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[9] >> 56) & 0xFF];
-    t[15] = G[0][(uint32_t)(x[15] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[0] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[1] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[2] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[3] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[4] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[5] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[10] >> 56) & 0xFF];
-#pragma unroll
-    for (int c = 0; c < 16; ++c) x[c] = t[c];
-  }
+// A thread's view of the replicated groestl tables in shared memory: its
+// copy (lane mod 16) and the stride of an entry, a run-time value so that
+// an address is one IMAD.
+struct GroTab {
+  const char* base;
+  uint32_t row;
+};
+
+__device__ __forceinline__ uint64_t gro_ld(GroTab g, uint32_t x, int t) {
+  return *reinterpret_cast<const uint64_t*>(g.base + x * g.row + t * 32768);
 }
 
-__device__ X11_NOINLINE void groestl_perm_q(uint64_t x[16], const uint64_t (*G)[256]) {
+// byte i of x, one instruction (PRMT for the middle bytes of a half)
+__device__ __forceinline__ uint32_t byte32(uint32_t x, int i) {
+  return i == 0 ? x & 0xFFu : i == 3 ? x >> 24 : __byte_perm(x, 0, 0x4440 + i);
+}
+__device__ __forceinline__ uint32_t byte_of(uint64_t x, int i) {
+  return byte32(i < 4 ? lo32(x) : hi32(x), i & 3);
+}
+
+// the column that row i's byte comes from, relative to the output column:
+// P shifts row i by i (row 7 by 11), Q by 1, 3, 5, 11, 0, 2, 4, 6
+__device__ __forceinline__ constexpr int gro_shift(bool q, int i) {
+  return q ? (i < 3 ? 2 * i + 1 : i == 3 ? 11 : 2 * (i - 4)) : (i < 7 ? i : 11);
+}
+
+// 14 rounds of P (kQ false) or Q: AddRoundConstant, then SubBytes,
+// ShiftBytes and MixBytes through the tables; table i + 4 is table i with
+// its halves swapped
+template <bool kQ>
+__device__ __forceinline__ void groestl_perm(uint64_t x[16], GroTab g) {
   X11_ROUNDS
   for (int r = 0; r < 14; ++r) {
 #pragma unroll
     for (int c = 0; c < 16; ++c)
-      x[c] = ~x[c] ^ (static_cast<uint64_t>((c << 4) ^ r) << 56);
+      x[c] = kQ ? ~x[c] ^ (static_cast<uint64_t>((c << 4) ^ r) << 56)
+                : x[c] ^ static_cast<uint64_t>((c << 4) ^ r);
     uint64_t t[16];
-    t[0] = G[0][(uint32_t)(x[1] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[3] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[5] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[11] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[0] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[2] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[4] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[6] >> 56) & 0xFF];
-    t[1] = G[0][(uint32_t)(x[2] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[4] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[6] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[12] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[1] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[3] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[5] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[7] >> 56) & 0xFF];
-    t[2] = G[0][(uint32_t)(x[3] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[5] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[7] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[13] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[2] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[4] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[6] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[8] >> 56) & 0xFF];
-    t[3] = G[0][(uint32_t)(x[4] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[6] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[8] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[14] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[3] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[5] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[7] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[9] >> 56) & 0xFF];
-    t[4] = G[0][(uint32_t)(x[5] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[7] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[9] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[15] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[4] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[6] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[8] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[10] >> 56) & 0xFF];
-    t[5] = G[0][(uint32_t)(x[6] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[8] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[10] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[0] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[5] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[7] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[9] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[11] >> 56) & 0xFF];
-    t[6] = G[0][(uint32_t)(x[7] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[9] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[11] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[1] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[6] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[8] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[10] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[12] >> 56) & 0xFF];
-    t[7] = G[0][(uint32_t)(x[8] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[10] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[12] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[2] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[7] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[9] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[11] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[13] >> 56) & 0xFF];
-    t[8] = G[0][(uint32_t)(x[9] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[11] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[13] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[3] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[8] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[10] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[12] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[14] >> 56) & 0xFF];
-    t[9] = G[0][(uint32_t)(x[10] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[12] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[14] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[4] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[9] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[11] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[13] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[15] >> 56) & 0xFF];
-    t[10] = G[0][(uint32_t)(x[11] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[13] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[15] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[5] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[10] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[12] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[14] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[0] >> 56) & 0xFF];
-    t[11] = G[0][(uint32_t)(x[12] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[14] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[0] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[6] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[11] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[13] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[15] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[1] >> 56) & 0xFF];
-    t[12] = G[0][(uint32_t)(x[13] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[15] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[1] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[7] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[12] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[14] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[0] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[2] >> 56) & 0xFF];
-    t[13] = G[0][(uint32_t)(x[14] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[0] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[2] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[8] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[13] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[15] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[1] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[3] >> 56) & 0xFF];
-    t[14] = G[0][(uint32_t)(x[15] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[1] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[3] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[9] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[14] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[0] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[2] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[4] >> 56) & 0xFF];
-    t[15] = G[0][(uint32_t)(x[0] >> 0) & 0xFF]
-        ^ G[1][(uint32_t)(x[2] >> 8) & 0xFF]
-        ^ G[2][(uint32_t)(x[4] >> 16) & 0xFF]
-        ^ G[3][(uint32_t)(x[10] >> 24) & 0xFF]
-        ^ G[4][(uint32_t)(x[15] >> 32) & 0xFF]
-        ^ G[5][(uint32_t)(x[1] >> 40) & 0xFF]
-        ^ G[6][(uint32_t)(x[3] >> 48) & 0xFF]
-        ^ G[7][(uint32_t)(x[5] >> 56) & 0xFF];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      uint64_t a = 0, b = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a ^= gro_ld(g, byte_of(x[(c + gro_shift(kQ, i)) & 15], i), i);
+#pragma unroll
+      for (int i = 4; i < 8; ++i)
+        b ^= gro_ld(g, byte_of(x[(c + gro_shift(kQ, i)) & 15], i), i - 4);
+      t[c] = a ^ rotl64(b, 32);
+    }
 #pragma unroll
     for (int c = 0; c < 16; ++c) x[c] = t[c];
   }
 }
 
-__device__ __forceinline__ void groestl512_64(uint64_t h[8], const uint64_t (*G)[256]) {
-  uint64_t m[16], a[16], q[16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) m[i] = h[i];
-  m[8] = 0x80;
-#pragma unroll
-  for (int i = 9; i < 15; ++i) m[i] = 0;
-  m[15] = 1ull << 56;
+__device__ __forceinline__ void groestl512_64(uint64_t h[8], GroTab g) {
+  uint64_t a[16], q[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const uint64_t iv = i == 15 ? (2ull << 48) : 0;
-    a[i] = m[i] ^ iv;
-    q[i] = m[i];
+    const uint64_t m = i < 8 ? h[i] : i == 8 ? 0x80 : i == 15 ? 1ull << 56 : 0;
+    a[i] = m ^ (i == 15 ? (2ull << 48) : 0);
+    q[i] = m;
   }
-  groestl_perm_p(a, G);
-  groestl_perm_q(q, G);
+  groestl_perm<true>(q, g);
+  groestl_perm<false>(a, g);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    a[i] ^= q[i] ^ (i == 15 ? (2ull << 48) : 0);
-    q[i] = a[i];
-  }
-  groestl_perm_p(a, G);
+  for (int i = 0; i < 16; ++i) a[i] ^= q[i] ^ (i == 15 ? (2ull << 48) : 0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = a[8 + i] ^ q[8 + i];
+  for (int i = 0; i < 8; ++i) q[i] = a[8 + i];
+  groestl_perm<false>(a, g);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = a[8 + i] ^ q[i];
 }
 
 // ---- 4. skein512: Threefish-512 in UBI mode -------------------------------------
@@ -927,21 +697,34 @@ __device__ __forceinline__ void skein512_64(uint64_t h[8]) {
     x3 ^= x4;                                 \
   } while (0)
 
+// the bit swap at distance s = 2^n (n < 5) within each 32-bit half (the
+// masked bits never cross it): ((x & m) << s) | ((x >> s) & m) as
+// (x & m) * 2^s + hi((x & (m << s)) * 2^(32 - s)), the shifts and the
+// merge on the FMA pipe
 template <int n>
-__device__ __forceinline__ uint64_t jh_swap(uint64_t x) {
-  constexpr uint64_t m = n == 0 ? 0x5555555555555555ull
-                       : n == 1 ? 0x3333333333333333ull
-                       : n == 2 ? 0x0F0F0F0F0F0F0F0Full
-                       : n == 3 ? 0x00FF00FF00FF00FFull
-                       : n == 4 ? 0x0000FFFF0000FFFFull
-                                : 0x00000000FFFFFFFFull;
-  return ((x & m) << (1 << n)) | ((x >> (1 << n)) & m);
+__device__ __forceinline__ uint32_t jh_swap32(uint32_t x, const Fma& f) {
+  constexpr uint32_t m = n == 0 ? 0x55555555u
+                       : n == 1 ? 0x33333333u
+                       : n == 2 ? 0x0F0F0F0Fu
+                       : n == 3 ? 0x00FF00FFu
+                                : 0x0000FFFFu;
+  constexpr int sh = 1 << n;
+  return __umulhi(x & (m << sh), f.pow2[32 - sh]) + (x & m) * f.pow2[sh];
+}
+template <int n>
+__device__ __forceinline__ uint64_t jh_swap(uint64_t x, const Fma& f) {
+  if constexpr (n == 5) {
+    return rotl64(x, 32);
+  } else {
+    return join64(jh_swap32<n>(lo32(x), f), jh_swap32<n>(hi32(x), f));
+  }
 }
 
 // one round r (n = r mod 7): S-boxes and L on both halves, then the odd
 // words' bit swap at distance 2^n (n = 6: their halves swap)
 template <int n>
-__device__ __forceinline__ void jh_round(uint64_t x[16], const uint64_t* c) {
+__device__ __forceinline__ void jh_round(uint64_t x[16], const uint64_t* c,
+                                         const Fma& f) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const uint64_t ce = c[hf], co = c[2 + hf];
@@ -957,42 +740,42 @@ __device__ __forceinline__ void jh_round(uint64_t x[16], const uint64_t* c) {
       x[2 * j] = x[2 * j + 1];
       x[2 * j + 1] = t;
     } else {
-      x[2 * j] = jh_swap<n < 6 ? n : 0>(x[2 * j]);
-      x[2 * j + 1] = jh_swap<n < 6 ? n : 0>(x[2 * j + 1]);
+      x[2 * j] = jh_swap<n < 6 ? n : 0>(x[2 * j], f);
+      x[2 * j + 1] = jh_swap<n < 6 ? n : 0>(x[2 * j + 1], f);
     }
   }
 }
 
-__device__ __forceinline__ void jh_e8(uint64_t x[16], const uint64_t* tb) {
-  const uint64_t* c = tb + kJhCOff;
+__device__ __forceinline__ void jh_e8(uint64_t x[16], const uint64_t* tb, const Fma& f) {
+  const uint64_t* c = tb + kJhCOff / 2;
   X11_ROUNDS
   for (int r = 0; r < 42; r += 7) {
-    jh_round<0>(x, c + 4 * (r + 0));
-    jh_round<1>(x, c + 4 * (r + 1));
-    jh_round<2>(x, c + 4 * (r + 2));
-    jh_round<3>(x, c + 4 * (r + 3));
-    jh_round<4>(x, c + 4 * (r + 4));
-    jh_round<5>(x, c + 4 * (r + 5));
-    jh_round<6>(x, c + 4 * (r + 6));
+    jh_round<0>(x, c + 4 * (r + 0), f);
+    jh_round<1>(x, c + 4 * (r + 1), f);
+    jh_round<2>(x, c + 4 * (r + 2), f);
+    jh_round<3>(x, c + 4 * (r + 3), f);
+    jh_round<4>(x, c + 4 * (r + 4), f);
+    jh_round<5>(x, c + 4 * (r + 5), f);
+    jh_round<6>(x, c + 4 * (r + 6), f);
   }
 }
 
-__device__ __forceinline__ void jh512_64(uint64_t h[8], const uint64_t* tb) {
+__device__ __forceinline__ void jh512_64(uint64_t h[8], const uint64_t* tb, const Fma& f) {
   uint64_t x[16], m[8];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = __ldg(&tb[kJhIvOff + i]);
+  for (int i = 0; i < 16; ++i) x[i] = __ldg(&tb[kJhIvOff / 2 + i]);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = bswap64(h[i]);
     x[i] ^= m[i];
   }
-  jh_e8(x, tb);
+  jh_e8(x, tb, f);
 #pragma unroll
   for (int i = 0; i < 8; ++i) x[8 + i] ^= m[i];
   // the padding block: 0x80, zeros, the 128-bit big-endian bit length 512
   x[0] ^= 0x80ull << 56;
   x[7] ^= 512;
-  jh_e8(x, tb);
+  jh_e8(x, tb, f);
   x[8] ^= 0x80ull << 56;
   x[15] ^= 512;
 #pragma unroll
@@ -1244,10 +1027,10 @@ __device__ __forceinline__ void cube_round(uint32_t x[32]) {
   }
 }
 
-__device__ __forceinline__ void cubehash512_64(uint64_t h[8], const uint64_t* tb) {
+__device__ __forceinline__ void cubehash512_64(uint64_t h[8], const uint32_t* tb) {
   uint32_t x[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) x[i] = static_cast<uint32_t>(__ldg(&tb[kCubeIvOff + i]));
+  for (int i = 0; i < 32; ++i) x[i] = __ldg(&tb[kCubeIvOff + i]);
 #pragma unroll
   for (int blk = 0; blk < 2; ++blk) {
 #pragma unroll
@@ -1267,16 +1050,28 @@ __device__ __forceinline__ void cubehash512_64(uint64_t h[8], const uint64_t* tb
 
 // ---- the AES round on four little-endian 32-bit columns -------------------------
 
-__device__ __forceinline__ void aes_round(const uint32_t (*T)[256], uint32_t& x0,
-                                          uint32_t& x1, uint32_t& x2, uint32_t& x3) {
-  const uint32_t y0 = T[0][x0 & 0xFF] ^ T[1][(x1 >> 8) & 0xFF] ^
-                      T[2][(x2 >> 16) & 0xFF] ^ T[3][x3 >> 24];
-  const uint32_t y1 = T[0][x1 & 0xFF] ^ T[1][(x2 >> 8) & 0xFF] ^
-                      T[2][(x3 >> 16) & 0xFF] ^ T[3][x0 >> 24];
-  const uint32_t y2 = T[0][x2 & 0xFF] ^ T[1][(x3 >> 8) & 0xFF] ^
-                      T[2][(x0 >> 16) & 0xFF] ^ T[3][x1 >> 24];
-  const uint32_t y3 = T[0][x3 & 0xFF] ^ T[1][(x0 >> 8) & 0xFF] ^
-                      T[2][(x1 >> 16) & 0xFF] ^ T[3][x2 >> 24];
+// A thread's view of the replicated AES tables in shared memory: its copy
+// (lane mod 32) and the stride of an entry (a run-time value: one IMAD an
+// address). Table t is T0 rotated left by 8t bits.
+struct AesTab {
+  const char* base;
+  uint32_t row;
+};
+
+__device__ __forceinline__ uint32_t aes_ld(AesTab T, uint32_t x, int t) {
+  return *reinterpret_cast<const uint32_t*>(T.base + x * T.row + t * 32768);
+}
+
+__device__ __forceinline__ void aes_round(AesTab T, uint32_t& x0, uint32_t& x1,
+                                          uint32_t& x2, uint32_t& x3) {
+  const uint32_t y0 = aes_ld(T, x0 & 0xFF, 0) ^ aes_ld(T, byte32(x1, 1), 1) ^
+                      aes_ld(T, byte32(x2, 2), 2) ^ aes_ld(T, x3 >> 24, 3);
+  const uint32_t y1 = aes_ld(T, x1 & 0xFF, 0) ^ aes_ld(T, byte32(x2, 1), 1) ^
+                      aes_ld(T, byte32(x3, 2), 2) ^ aes_ld(T, x0 >> 24, 3);
+  const uint32_t y2 = aes_ld(T, x2 & 0xFF, 0) ^ aes_ld(T, byte32(x3, 1), 1) ^
+                      aes_ld(T, byte32(x0, 2), 2) ^ aes_ld(T, x1 >> 24, 3);
+  const uint32_t y3 = aes_ld(T, x3 & 0xFF, 0) ^ aes_ld(T, byte32(x0, 1), 1) ^
+                      aes_ld(T, byte32(x1, 2), 2) ^ aes_ld(T, x2 >> 24, 3);
   x0 = y0;
   x1 = y1;
   x2 = y2;
@@ -1287,17 +1082,26 @@ __device__ __forceinline__ void aes_round(const uint32_t (*T)[256], uint32_t& x0
 // of 32 as they are used ----------------------------------------------------------
 
 // F: x ^ k0, then AES with k1, k2, k3 between, and a last keyless AES
-__device__ __forceinline__ void shavite_f4(const uint32_t (*T)[256], const uint32_t p[4],
+__device__ __forceinline__ void shavite_f4(AesTab T, const uint32_t p[4],
                                            const uint32_t* k, uint32_t f[4]) {
+  // written out (no loop): a loop here, left rolled inside a round loop
+  // that the counting build unrolls, indexed k at run time from local memory
   uint32_t t0 = p[0] ^ k[0], t1 = p[1] ^ k[1], t2 = p[2] ^ k[2], t3 = p[3] ^ k[3];
-#pragma unroll
-  for (int r = 1; r < 4; ++r) {
-    aes_round(T, t0, t1, t2, t3);
-    t0 ^= k[4 * r];
-    t1 ^= k[4 * r + 1];
-    t2 ^= k[4 * r + 2];
-    t3 ^= k[4 * r + 3];
-  }
+  aes_round(T, t0, t1, t2, t3);
+  t0 ^= k[4];
+  t1 ^= k[5];
+  t2 ^= k[6];
+  t3 ^= k[7];
+  aes_round(T, t0, t1, t2, t3);
+  t0 ^= k[8];
+  t1 ^= k[9];
+  t2 ^= k[10];
+  t3 ^= k[11];
+  aes_round(T, t0, t1, t2, t3);
+  t0 ^= k[12];
+  t1 ^= k[13];
+  t2 ^= k[14];
+  t3 ^= k[15];
   aes_round(T, t0, t1, t2, t3);
   f[0] = t0;
   f[1] = t1;
@@ -1315,7 +1119,7 @@ __device__ __forceinline__ uint32_t shavite_cnt(uint32_t cnt_order, int i, int j
   return j == 3 ? ~v : v;
 }
 
-__device__ X11_NOINLINE void shavite512_64(uint64_t h[8], const uint32_t (*T)[256],
+__device__ __forceinline__ void shavite512_64(uint64_t h[8], AesTab T,
                                            uint32_t cnt_order) {
   uint32_t rk[32], p[16];
 #pragma unroll
@@ -1376,248 +1180,135 @@ __device__ X11_NOINLINE void shavite512_64(uint64_t h[8], const uint32_t (*T)[25
     h[i] = join64(kShaviteIV[2 * i] ^ p[2 * i], kShaviteIV[2 * i + 1] ^ p[2 * i + 1]);
 }
 
-// ---- 10. simd512 ----------------------------------------------------------------
+// ---- 10. simd512, a group of 8 threads a lane ----------------------------------
+//
+// The expansion y[k] = twist(k) * sum_n x[n] 41^(nk) mod 257 (x the 64
+// digest bytes, zero past them), centred to [-128, 128], splits with
+// n = 32a + b, k = j + 8m as
+//   y[j + 8m] = twist * sum_b (x[b] 41^(bj) + x[32 + b] 41^((32+b)j)) (41^8)^(bm)
+// (a < 2: the bytes past 64 are zero), so thread j of the group computes its
+// 32 outputs alone: 32 products by its constants 41^(nj) (the table block's
+// [64][8] rows), then a 32-point NTT by 41^8 in registers. Reductions mod
+// 257 are red(x) = (x & 255) - (x >> 8) (256 = -1 mod 257), where the
+// value's range allows: a product of the inputs stays under 2^17, every
+// later value under 2^20 (tests/test_torch_x11_tables.py holds the same
+// steps to the plain version). Thread j then holds the expanded words the
+// compression's column j reads: word 8m + j packs y[j + 8m] and
+// y[j + 8(m ^ 16)].
 
-#define SIMD_STEP(use_if, r, s, p, wbase)                                     \
-  do {                                                                        \
-    uint32_t tA[8], nA[8];                                                    \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) tA[j] = rotl32(A[j], r);    \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) {                           \
-      const uint32_t f = use_if ? (((B[j] ^ C[j]) & A[j]) ^ C[j])             \
-                                : ((C[j] & B[j]) | ((C[j] | B[j]) & A[j]));   \
-      nA[j] = rotl32(D[j] + W(wbase + j) + f, s) + tA[j ^ p];                 \
-    }                                                                         \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) {                           \
-      D[j] = C[j];                                                            \
-      C[j] = B[j];                                                            \
-      B[j] = tA[j];                                                           \
-      A[j] = nA[j];                                                           \
-    }                                                                         \
-  } while (0)
+// 41^(8e) mod 257, the 32-point NTT's twiddles
+__constant__ int kW8[32] = {
+    1, 60, 2, 120, 4, 240, 8, 223, 16, 189, 32, 121, 64, 242, 128, 227,
+    256, 197, 255, 137, 253, 17, 249, 34, 241, 68, 225, 136, 193, 15, 129, 30,
+};
 
-#define SIMD_FF(r, s, p, fs)                                                  \
-  do {                                                                        \
-    uint32_t tA[8], nA[8];                                                    \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) tA[j] = rotl32(A[j], r);    \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) {                           \
-      const uint32_t f = ((B[j] ^ C[j]) & A[j]) ^ C[j];                       \
-      nA[j] = rotl32(D[j] + saved[8 * fs + j] + f, s) + tA[j ^ p];            \
-    }                                                                         \
-    _Pragma("unroll") for (int j = 0; j < 8; ++j) {                           \
-      D[j] = C[j];                                                            \
-      C[j] = B[j];                                                            \
-      B[j] = tA[j];                                                           \
-      A[j] = nA[j];                                                           \
-    }                                                                         \
-  } while (0)
+__device__ __forceinline__ int red257(int x) { return (x & 255) - (x >> 8); }
 
-// the compression's body: state A|B|C|D, m the block's 32 little-endian
-// words, W(i) its expanded word i (a macro over what the caller holds)
-// the first block: the 64 digest bytes and 64 zeros; its expanded words from
-// the NTT of those bytes (y, this thread's 256-entry array)
-__device__ X11_NOINLINE void simd_compress_msg(uint32_t state[32], const uint32_t m[32],
-                                               const int* y) {
-#define W(i) ((static_cast<uint32_t>(y[(i)]) & 0xFFFFu) | \
-              ((static_cast<uint32_t>(y[(i) ^ 128]) & 0xFFFFu) << 16))
-  uint32_t saved[32], A[8], B[8], C[8], D[8];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) saved[i] = state[i];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    A[j] = state[j] ^ m[j];
-    B[j] = state[8 + j] ^ m[8 + j];
-    C[j] = state[16 + j] ^ m[16 + j];
-    D[j] = state[24 + j] ^ m[24 + j];
-  }
-    SIMD_STEP(true, 3, 23, 1, 32);
-    SIMD_STEP(true, 23, 17, 6, 48);
-    SIMD_STEP(true, 17, 27, 2, 0);
-    SIMD_STEP(true, 27, 3, 3, 16);
-    SIMD_STEP(false, 3, 23, 5, 56);
-    SIMD_STEP(false, 23, 17, 7, 40);
-    SIMD_STEP(false, 17, 27, 4, 24);
-    SIMD_STEP(false, 27, 3, 1, 8);
-    SIMD_STEP(true, 28, 19, 6, 120);
-    SIMD_STEP(true, 19, 22, 2, 88);
-    SIMD_STEP(true, 22, 7, 3, 96);
-    SIMD_STEP(true, 7, 28, 5, 64);
-    SIMD_STEP(false, 28, 19, 7, 72);
-    SIMD_STEP(false, 19, 22, 4, 104);
-    SIMD_STEP(false, 22, 7, 1, 80);
-    SIMD_STEP(false, 7, 28, 6, 112);
-    SIMD_STEP(true, 29, 9, 2, 136);
-    SIMD_STEP(true, 9, 15, 3, 144);
-    SIMD_STEP(true, 15, 5, 5, 184);
-    SIMD_STEP(true, 5, 29, 7, 160);
-    SIMD_STEP(false, 29, 9, 4, 176);
-    SIMD_STEP(false, 9, 15, 1, 168);
-    SIMD_STEP(false, 15, 5, 6, 128);
-    SIMD_STEP(false, 5, 29, 2, 152);
-    SIMD_STEP(true, 4, 13, 3, 240);
-    SIMD_STEP(true, 13, 10, 5, 192);
-    SIMD_STEP(true, 10, 25, 7, 200);
-    SIMD_STEP(true, 25, 4, 4, 248);
-    SIMD_STEP(false, 4, 13, 1, 216);
-    SIMD_STEP(false, 13, 10, 6, 232);
-    SIMD_STEP(false, 10, 25, 2, 224);
-    SIMD_STEP(false, 25, 4, 3, 208);
-  SIMD_FF(4, 13, 5, 0);
-  SIMD_FF(13, 10, 7, 1);
-  SIMD_FF(10, 25, 4, 2);
-  SIMD_FF(25, 4, 1, 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    state[j] = A[j];
-    state[8 + j] = B[j];
-    state[16 + j] = C[j];
-    state[24 + j] = D[j];
-  }
-#undef W
+__device__ __forceinline__ constexpr int rev5(int i) {
+  return ((i & 1) << 4) | ((i & 2) << 2) | (i & 4) | ((i & 8) >> 2) | ((i & 16) >> 4);
 }
 
-// the final block: the fixed length block, its expanded words a table
-__device__ X11_NOINLINE void simd_compress_final(uint32_t state[32], const uint32_t m[32],
-                                                 const uint64_t* wf) {
-#define W(i) static_cast<uint32_t>(__ldg(&wf[(i)]))
-  uint32_t saved[32], A[8], B[8], C[8], D[8];
+// this thread's y[j + 8m], m < 32, centred to [-128, 128]
+__device__ __forceinline__ void simd_expand_j(const uint64_t h[8], int j,
+                                              const uint32_t* tb, int y[32]) {
+  const uint32_t* c = tb + kSimdCOff + j;      // 41^(nj) at c[8n]
 #pragma unroll
-  for (int i = 0; i < 32; ++i) saved[i] = state[i];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    A[j] = state[j] ^ m[j];
-    B[j] = state[8 + j] ^ m[8 + j];
-    C[j] = state[16 + j] ^ m[16 + j];
-    D[j] = state[24 + j] ^ m[24 + j];
+  for (int i = 0; i < 32; ++i) {
+    const int b = rev5(i);
+    const int x0 = static_cast<int>((h[b >> 3] >> (8 * (b & 7))) & 0xFF);
+    const int x1 = static_cast<int>((h[4 + (b >> 3)] >> (8 * (b & 7))) & 0xFF);
+    y[i] = red257(x0 * static_cast<int>(__ldg(&c[8 * b])) +
+                  x1 * static_cast<int>(__ldg(&c[8 * (32 + b)])));
   }
-    SIMD_STEP(true, 3, 23, 1, 32);
-    SIMD_STEP(true, 23, 17, 6, 48);
-    SIMD_STEP(true, 17, 27, 2, 0);
-    SIMD_STEP(true, 27, 3, 3, 16);
-    SIMD_STEP(false, 3, 23, 5, 56);
-    SIMD_STEP(false, 23, 17, 7, 40);
-    SIMD_STEP(false, 17, 27, 4, 24);
-    SIMD_STEP(false, 27, 3, 1, 8);
-    SIMD_STEP(true, 28, 19, 6, 120);
-    SIMD_STEP(true, 19, 22, 2, 88);
-    SIMD_STEP(true, 22, 7, 3, 96);
-    SIMD_STEP(true, 7, 28, 5, 64);
-    SIMD_STEP(false, 28, 19, 7, 72);
-    SIMD_STEP(false, 19, 22, 4, 104);
-    SIMD_STEP(false, 22, 7, 1, 80);
-    SIMD_STEP(false, 7, 28, 6, 112);
-    SIMD_STEP(true, 29, 9, 2, 136);
-    SIMD_STEP(true, 9, 15, 3, 144);
-    SIMD_STEP(true, 15, 5, 5, 184);
-    SIMD_STEP(true, 5, 29, 7, 160);
-    SIMD_STEP(false, 29, 9, 4, 176);
-    SIMD_STEP(false, 9, 15, 1, 168);
-    SIMD_STEP(false, 15, 5, 6, 128);
-    SIMD_STEP(false, 5, 29, 2, 152);
-    SIMD_STEP(true, 4, 13, 3, 240);
-    SIMD_STEP(true, 13, 10, 5, 192);
-    SIMD_STEP(true, 10, 25, 7, 200);
-    SIMD_STEP(true, 25, 4, 4, 248);
-    SIMD_STEP(false, 4, 13, 1, 216);
-    SIMD_STEP(false, 13, 10, 6, 232);
-    SIMD_STEP(false, 10, 25, 2, 224);
-    SIMD_STEP(false, 25, 4, 3, 208);
-  SIMD_FF(4, 13, 5, 0);
-  SIMD_FF(13, 10, 7, 1);
-  SIMD_FF(10, 25, 4, 2);
-  SIMD_FF(25, 4, 1, 3);
+  // level lg: 16 butterflies of half-width 2^lg (loops of fixed counts, so
+  // that both unroll: LLVM unrolls an inner loop before the loop around it)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    state[j] = A[j];
-    state[8 + j] = B[j];
-    state[16 + j] = C[j];
-    state[24 + j] = D[j];
-  }
-#undef W
-}
-
-__device__ __forceinline__ int mod257(int x) {
-  x %= 257;
-  return x < 0 ? x + 257 : x;
-}
-
-// one butterfly of simd's NTT: y[lo] and y[lo + half] by the twiddle w
-__device__ __forceinline__ void simd_butterfly(int y[256], int lo, int half,
-                                               uint64_t w) {
-  const int u = y[lo];
-  const int v = (y[lo + half] * static_cast<int>(w)) % 257;
-  y[lo] = mod257(u + v);
-  y[lo + half] = mod257(u - v);
-}
-
-#ifdef X11_COUNT
-template <int kLg>
-__device__ __forceinline__ void simd_ntt_level(int y[256], const uint64_t* tb) {
-  constexpr int kLen = 1 << kLg, kHalf = kLen >> 1, kStride = 256 >> kLg;
+  for (int lg = 0; lg < 5; ++lg) {
 #pragma unroll
-  for (int blk = 0; blk < 256; blk += kLen) {
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j)
-      simd_butterfly(y, blk + j, kHalf, __ldg(&tb[kOmegaOff + j * kStride]));
-  }
-}
-#endif
-
-// y[k] = sum_j x[j] * 41^(jk) mod 257 for the 64 bytes x of h (x[j] = 0 past
-// 64), radix-2 butterflies on the bit-reversed input; then the twist 163^k,
-// centred to [-128, 128]
-__device__ X11_NOINLINE void simd_expand(const uint64_t h[8], int y[256], const uint64_t* tb) {
-  X11_ROUNDS
-  for (int i = 0; i < 256; ++i) {
-    const int j = __brev(static_cast<uint32_t>(i)) >> 24;
-    y[i] = j < 64 ? static_cast<int>((h[j >> 3] >> (8 * (j & 7))) & 0xFF) : 0;
-  }
-#ifdef X11_COUNT
-  // the levels one by one, their loops of fixed counts (LLVM unrolls an
-  // inner loop before the loop around it)
-  simd_ntt_level<1>(y, tb);
-  simd_ntt_level<2>(y, tb);
-  simd_ntt_level<3>(y, tb);
-  simd_ntt_level<4>(y, tb);
-  simd_ntt_level<5>(y, tb);
-  simd_ntt_level<6>(y, tb);
-  simd_ntt_level<7>(y, tb);
-  simd_ntt_level<8>(y, tb);
-#else
-  for (int len = 2, stride = 128; len <= 256; len <<= 1, stride >>= 1) {
-    const int half = len >> 1;
-    for (int blk = 0; blk < 256; blk += len) {
-      for (int j = 0; j < half; ++j)
-        simd_butterfly(y, blk + j, half, __ldg(&tb[kOmegaOff + j * stride]));
+    for (int q = 0; q < 16; ++q) {
+      const int i = q & ((1 << lg) - 1);
+      const int lo = ((q >> lg) << (lg + 1)) + i, hi = lo + (1 << lg);
+      const int e = i << (4 - lg);
+      const int u = y[lo];
+      const int t = e == 0 ? y[hi] : red257(y[hi] * kW8[e]);
+      y[lo] = u + t;
+      y[hi] = u - t;
     }
   }
-#endif
-  X11_ROUNDS
-  for (int k = 0; k < 256; ++k) {
-    const int s = (y[k] * static_cast<int>(__ldg(&tb[kTwistOff + k]))) % 257;
-    y[k] = s > 128 ? s - 257 : s;
+#pragma unroll
+  for (int m = 0; m < 32; ++m) {
+    const int v = red257(red257(red257(y[m] * static_cast<int>(
+        __ldg(&tb[kTwistOff + j + 8 * m])))));         // in [-1, 256]
+    y[m] = v > 128 ? v - 257 : v;
   }
 }
 
-__device__ __forceinline__ void simd512_64(uint64_t h[8], const uint64_t* tb) {
-  int y[256];
-  simd_expand(h, y, tb);
-  uint32_t state[32], m[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) state[i] = kSimdIV[i];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[2 * i] = lo32(h[i]);
-    m[2 * i + 1] = hi32(h[i]);
-  }
-#pragma unroll
-  for (int i = 16; i < 32; ++i) m[i] = 0;
-  simd_compress_msg(state, m, y);
-  m[0] = 512;
-#pragma unroll
-  for (int i = 1; i < 32; ++i) m[i] = 0;
-  simd_compress_final(state, m, tb + kWFinalOff);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = join64(state[2 * i], state[2 * i + 1]);
+// one step of column j: A' = ROL(D + W + f(A, B, C), s) + ROL(A, r) of
+// column j ^ p; B' = ROL(A, r); C' = B; D' = C
+#define SIMD_STEP(use_if, r, s, p, w)                                       \
+  do {                                                                      \
+    const uint32_t tA = rotl32(A, r);                                       \
+    const uint32_t f = use_if ? (((B ^ C) & A) ^ C)                         \
+                              : ((C & B) | ((C | B) & A));                  \
+    const uint32_t nA =                                                     \
+        rotl32(D + (w) + f, s) + __shfl_xor_sync(0xFFFFFFFFu, tA, p, 8);    \
+    D = C;                                                                  \
+    C = B;                                                                  \
+    B = tA;                                                                 \
+    A = nA;                                                                 \
+  } while (0)
+
+// the 32 steps and the 4 feed-forward steps of one compression of column
+// j; W(i) is expanded word i (i = wbase + j), sA..sD the saved column
+#define SIMD_ROUNDS                                                          \
+  SIMD_STEP(true, 3, 23, 1, W(32)); SIMD_STEP(true, 23, 17, 6, W(48));     \
+  SIMD_STEP(true, 17, 27, 2, W(0)); SIMD_STEP(true, 27, 3, 3, W(16));      \
+  SIMD_STEP(false, 3, 23, 5, W(56)); SIMD_STEP(false, 23, 17, 7, W(40));   \
+  SIMD_STEP(false, 17, 27, 4, W(24)); SIMD_STEP(false, 27, 3, 1, W(8));    \
+  SIMD_STEP(true, 28, 19, 6, W(120)); SIMD_STEP(true, 19, 22, 2, W(88));   \
+  SIMD_STEP(true, 22, 7, 3, W(96)); SIMD_STEP(true, 7, 28, 5, W(64));      \
+  SIMD_STEP(false, 28, 19, 7, W(72)); SIMD_STEP(false, 19, 22, 4, W(104)); \
+  SIMD_STEP(false, 22, 7, 1, W(80)); SIMD_STEP(false, 7, 28, 6, W(112));   \
+  SIMD_STEP(true, 29, 9, 2, W(136)); SIMD_STEP(true, 9, 15, 3, W(144));    \
+  SIMD_STEP(true, 15, 5, 5, W(184)); SIMD_STEP(true, 5, 29, 7, W(160));    \
+  SIMD_STEP(false, 29, 9, 4, W(176)); SIMD_STEP(false, 9, 15, 1, W(168));  \
+  SIMD_STEP(false, 15, 5, 6, W(128)); SIMD_STEP(false, 5, 29, 2, W(152));  \
+  SIMD_STEP(true, 4, 13, 3, W(240)); SIMD_STEP(true, 13, 10, 5, W(192));   \
+  SIMD_STEP(true, 10, 25, 7, W(200)); SIMD_STEP(true, 25, 4, 4, W(248));   \
+  SIMD_STEP(false, 4, 13, 1, W(216)); SIMD_STEP(false, 13, 10, 6, W(232)); \
+  SIMD_STEP(false, 10, 25, 2, W(224)); SIMD_STEP(false, 25, 4, 3, W(208)); \
+  SIMD_STEP(true, 4, 13, 5, sA); SIMD_STEP(true, 13, 10, 7, sB);           \
+  SIMD_STEP(true, 10, 25, 4, sC); SIMD_STEP(true, 25, 4, 1, sD)
+
+// simd512 of the digest h, column j (j = the thread's rank in its group of
+// 8, the group's threads adjacent in one warp); m0, m8: the digest's 32-bit
+// words j and 8 + j. Returns the new digest's words j (a) and 8 + j (b).
+// Every thread of the warp must call it (the steps shuffle).
+__device__ __forceinline__ void simd512_64_j(const uint64_t h[8], int j, uint32_t m0,
+                                             uint32_t m8, const uint32_t* tb,
+                                             uint32_t& a, uint32_t& b) {
+  int y[32];
+  simd_expand_j(h, j, tb, y);
+  uint32_t sA = kSimdIV[j], sB = kSimdIV[8 + j], sC = kSimdIV[16 + j],
+           sD = kSimdIV[24 + j];
+  uint32_t A = sA ^ m0, B = sB ^ m8, C = sC, D = sD;
+#define W(i)                                                          \
+  __byte_perm(static_cast<uint32_t>(y[(i) >> 3]),                     \
+              static_cast<uint32_t>(y[((i) >> 3) ^ 16]), 0x5410)
+  SIMD_ROUNDS;
+#undef W
+  // the final block (the length, 512, in word 0): its words a table
+  sA = A;
+  sB = B;
+  sC = C;
+  sD = D;
+  A ^= j == 0 ? 512u : 0u;
+  const uint32_t* wf = tb + kWFinalOff + j;
+#define W(i) __ldg(&wf[(i)])
+  SIMD_ROUNDS;
+#undef W
+  a = A;
+  b = B;
 }
 
 // ---- 11. echo512: sixteen 128-bit words of four 32-bit columns ------------------
@@ -1627,7 +1318,7 @@ __device__ __forceinline__ uint32_t mul2x4(uint32_t x) {
 }
 
 // the digest's first 32 bytes as eight little-endian 32-bit words
-__device__ X11_NOINLINE void echo512_64(const uint64_t h[8], const uint32_t (*T)[256],
+__device__ __forceinline__ void echo512_64(const uint64_t h[8], AesTab T,
                                         uint32_t d[8]) {
   uint32_t s[16][4], M0[8];
 #pragma unroll
@@ -1692,26 +1383,7 @@ __device__ X11_NOINLINE void echo512_64(const uint64_t h[8], const uint32_t (*T)
   }
 }
 
-// ---- the chain --------------------------------------------------------------
-
-// hw: the header's ten big-endian 64-bit words; d: the digest's first 32
-// bytes as eight little-endian 32-bit words
-__device__ __forceinline__ void x11_chain(const uint64_t hw[10], const Tables& sm,
-                                          const uint64_t* tb, uint32_t cnt_order,
-                                          uint32_t d[8]) {
-  uint64_t h[8];
-  blake512_80(hw, h);
-  bmw512_64(h);
-  groestl512_64(h, sm.gro);
-  skein512_64(h);
-  jh512_64(h, tb);
-  keccak512_64(h);
-  luffa512_64(h);
-  cubehash512_64(h, tb);
-  shavite512_64(h, sm.aes, cnt_order);
-  simd512_64(h, tb);
-  echo512_64(h, sm.aes, d);
-}
+// ---- the kernels ------------------------------------------------------------
 
 // the search's job: the prefix's 19 big-endian words, the nonce base, the
 // target's limbs (most-significant-first), the shavite counter order
@@ -1722,36 +1394,77 @@ struct X11Job {
   uint32_t cnt_order;
 };
 constexpr int kJobWords = 29;
-constexpr int kX11Threads = 128;
+// threads a block: the stages a thread a lane, simd's groups of 8, and the
+// table stages (one block an SM: its 128 KiB of tables)
+constexpr int kThreads = 128;
+constexpr int kTabThreads = 512;
+constexpr int kSimdGroup = 8;
+// the other kernels' blocks an SM at least: 16 warps, so at most 128
+// registers a thread; bmw 12 warps (it needs 161 registers), blake 8 (it
+// spills at 168), groestl 12 (a 384-thread block: at 512 it spills)
+constexpr int kMinBlocks = 4;
+constexpr int kBmwBlocks = 3;
+constexpr int kBlakeBlocks = 2;
+constexpr int kGroThreads = 384;
+
+// a lane's 64-byte value in the state buffer: word w at st[w * cap + lane]
+__device__ __forceinline__ void load_state(const uint64_t* st, uint32_t cap,
+                                           uint32_t lane, uint64_t h[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = st[static_cast<size_t>(i) * cap + lane];
+}
+__device__ __forceinline__ void store_state(uint64_t* st, uint32_t cap,
+                                            uint32_t lane, const uint64_t h[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[static_cast<size_t>(i) * cap + lane] = h[i];
+}
+
+// the block's copy of a 128 KiB table region of the table block
+__device__ __forceinline__ const char* copy_tables(const uint32_t* tb, int off) {
+  extern __shared__ uint4 tab[];
+  const uint4* src = reinterpret_cast<const uint4*>(tb + off);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kTabBytes / 16; i += blockDim.x) tab[i] = src[i];
+  __syncthreads();
+  return reinterpret_cast<const char*>(tab);
+}
 
 #ifdef X11_COUNT
 
 }  // namespace
 
-// stage X11_COUNT of one lane between a load of its input and a store of
-// its output (x11_cuda.chain_instructions subtracts stage 0's count);
-// external, so that the build keeps it though nothing launches it
-extern "C" __global__ void __launch_bounds__(kX11Threads)
+// stage X11_COUNT of one lane (simd: of one thread of its group) between a
+// load of its input and a store of its output (x11_cuda.chain_instructions
+// subtracts stage 0's count); external, so that the build keeps it though
+// nothing launches it
+extern "C" __global__ void __launch_bounds__(kThreads, kMinBlocks)
     x11_count_kernel(const uint64_t* __restrict__ in, uint64_t* out,
-                     uint32_t cnt_order, const uint64_t* __restrict__ tb) {
-  __shared__ Tables sm;
-  load_tables<kX11Threads>(sm, tb);
-  const int lane = blockIdx.x * kX11Threads + threadIdx.x;
+                     uint32_t cnt_order, const uint32_t* __restrict__ tb,
+                     uint32_t row, const Fma f) {
+  extern __shared__ uint4 tab[];
+  const uint4* src = reinterpret_cast<const uint4*>(tb + (X11_COUNT == 3 ? kGroOff : kAesOff));
+#pragma unroll
+  for (int j = 0; j < kTabBytes / 16 / kThreads; ++j)
+    tab[j * kThreads + threadIdx.x] = src[j * kThreads + threadIdx.x];
+  __syncthreads();
+  const char* sm = reinterpret_cast<const char*>(tab);
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
   uint64_t x[10], h[8];
 #pragma unroll
   for (int i = 0; i < 10; ++i) x[i] = in[lane * 10 + i];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = x[i];
+  const AesTab aes{sm + (threadIdx.x & 31) * 4, row};
 #if X11_COUNT == 1
   blake512_80(x, h);
 #elif X11_COUNT == 2
   bmw512_64(h);
 #elif X11_COUNT == 3
-  groestl512_64(h, sm.gro);
+  groestl512_64(h, GroTab{sm + (threadIdx.x & 15) * 8, row});
 #elif X11_COUNT == 4
   skein512_64(h);
 #elif X11_COUNT == 5
-  jh512_64(h, tb);
+  jh512_64(h, reinterpret_cast<const uint64_t*>(tb), f);
 #elif X11_COUNT == 6
   keccak512_64(h);
 #elif X11_COUNT == 7
@@ -1759,12 +1472,14 @@ extern "C" __global__ void __launch_bounds__(kX11Threads)
 #elif X11_COUNT == 8
   cubehash512_64(h, tb);
 #elif X11_COUNT == 9
-  shavite512_64(h, sm.aes, cnt_order);
+  shavite512_64(h, aes, cnt_order);
 #elif X11_COUNT == 10
-  simd512_64(h, tb);
+  uint32_t a, b;
+  simd512_64_j(h, threadIdx.x & 7, lo32(x[8]), hi32(x[9]), tb, a, b);
+  h[0] = join64(a, b);
 #elif X11_COUNT == 11
   uint32_t d[8];
-  echo512_64(h, sm.aes, d);
+  echo512_64(h, aes, d);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = join64(d[2 * i], d[2 * i + 1]);
 #endif
@@ -1774,111 +1489,347 @@ extern "C" __global__ void __launch_bounds__(kX11Threads)
 
 #else  // the kernels
 
-template <int kT>
-__global__ void __launch_bounds__(kT)
-    x11_search_kernel(const X11Job job, unsigned long long lanes, uint32_t* out,
-                      int k, const uint64_t* __restrict__ tb) {
-  __shared__ Tables sm;
-  load_tables<kT>(sm, tb);
-  const unsigned long long lane =
-      static_cast<unsigned long long>(blockIdx.x) * kT + threadIdx.x;
-  uint32_t best = kNoWinner;
-  if (lane < lanes) {
-    uint64_t hw[10];
+// stage 1, the search: lane i of the chunk is launch offset first + i, its
+// nonce word base + first + i; blake of its header
+__global__ void __launch_bounds__(kThreads, kBlakeBlocks)
+    blake_search_kernel(const X11Job job, uint32_t first, uint32_t n,
+                        uint64_t* __restrict__ st, uint32_t cap) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  uint64_t hw[10], h[8];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) hw[i] = join64(job.w[2 * i + 1], job.w[2 * i]);
-    hw[9] = join64(job.base + static_cast<uint32_t>(lane), job.w[18]);
-    uint32_t d[8], hl[8];
-    x11_chain(hw, sm, tb, job.cnt_order, d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) hl[j] = d[7 - j];
-    best = hl[0];
-    if (limbs_le(hl, job.target)) take_slot(out, k, static_cast<uint32_t>(lane), hl[0]);
-  }
-  block_min_to<kT>(best, &out[2 * k + 2]);
+  for (int w = 0; w < 9; ++w) hw[w] = join64(job.w[2 * w + 1], job.w[2 * w]);
+  hw[9] = join64(job.base + first + i, job.w[18]);
+  blake512_80(hw, h);
+  store_state(st, cap, i, h);
 }
 
-template <int kT>
-__global__ void __launch_bounds__(kT)
-    x11_verify_kernel(const uint32_t* __restrict__ words,
-                      const uint32_t* __restrict__ limbs, unsigned long long lanes,
-                      uint32_t* out, int k, uint32_t cnt_order,
-                      const uint64_t* __restrict__ tb) {
-  __shared__ Tables sm;
-  load_tables<kT>(sm, tb);
-  const unsigned long long lane =
-      static_cast<unsigned long long>(blockIdx.x) * kT + threadIdx.x;
-  uint32_t best = kNoWinner;
-  if (lane < lanes) {
-    const uint32_t* row = words + lane * 20;
-    uint64_t hw[10];
+// stage 1, the verify: lane i of the chunk is row first + i
+__global__ void __launch_bounds__(kThreads, kBlakeBlocks)
+    blake_verify_kernel(const uint32_t* __restrict__ words, uint32_t first,
+                        uint32_t n, uint64_t* __restrict__ st, uint32_t cap) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t* row = words + static_cast<size_t>(first + i) * 20;
+  uint64_t hw[10], h[8];
 #pragma unroll
-    for (int i = 0; i < 10; ++i) hw[i] = join64(__ldg(&row[2 * i + 1]), __ldg(&row[2 * i]));
+  for (int w = 0; w < 10; ++w) hw[w] = join64(__ldg(&row[2 * w + 1]), __ldg(&row[2 * w]));
+  blake512_80(hw, h);
+  store_state(st, cap, i, h);
+}
+
+// stages 2, 4-8: a thread a lane, in place
+template <int kStage>
+__global__ void __launch_bounds__(kThreads, kStage == 2 ? kBmwBlocks : kMinBlocks)
+    stage_kernel(uint64_t* __restrict__ st, uint32_t n, uint32_t cap,
+                 const uint32_t* __restrict__ tb, const Fma f) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  uint64_t h[8];
+  load_state(st, cap, i, h);
+  if (kStage == 2) bmw512_64(h);
+  if (kStage == 4) skein512_64(h);
+  if (kStage == 5) jh512_64(h, reinterpret_cast<const uint64_t*>(tb), f);
+  if (kStage == 6) keccak512_64(h);
+  if (kStage == 7) luffa512_64(h);
+  if (kStage == 8) cubehash512_64(h, tb);
+  store_state(st, cap, i, h);
+}
+
+// stage 3: groestl, a block an SM looping over the lanes
+__global__ void __launch_bounds__(kGroThreads, 1)
+    groestl_kernel(uint64_t* __restrict__ st, uint32_t n, uint32_t cap,
+                   const uint32_t* __restrict__ tb, uint32_t row) {
+  const GroTab g{copy_tables(tb, kGroOff) + (threadIdx.x & 15) * 8, row};
+  for (uint32_t i = blockIdx.x * kGroThreads + threadIdx.x; i < n;
+       i += gridDim.x * kGroThreads) {
+    uint64_t h[8];
+    load_state(st, cap, i, h);
+    groestl512_64(h, g);
+    store_state(st, cap, i, h);
+  }
+}
+
+// stage 9: shavite, as groestl
+__global__ void __launch_bounds__(kTabThreads, 1)
+    shavite_kernel(uint64_t* __restrict__ st, uint32_t n, uint32_t cap,
+                   const uint32_t* __restrict__ tb, uint32_t row,
+                   uint32_t cnt_order) {
+  const AesTab T{copy_tables(tb, kAesOff) + (threadIdx.x & 31) * 4, row};
+  for (uint32_t i = blockIdx.x * kTabThreads + threadIdx.x; i < n;
+       i += gridDim.x * kTabThreads) {
+    uint64_t h[8];
+    load_state(st, cap, i, h);
+    shavite512_64(h, T, cnt_order);
+    store_state(st, cap, i, h);
+  }
+}
+
+// stage 10: simd, a group of 8 adjacent threads a lane; a lane past n
+// computes on lane n - 1's value (every thread shuffles) and stores nothing
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    simd_kernel(uint64_t* __restrict__ st, uint32_t n, uint32_t cap,
+                const uint32_t* __restrict__ tb) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t i = t / kSimdGroup, j = t % kSimdGroup;
+  const uint32_t lane = i < n ? i : n - 1;
+  uint64_t h[8];
+  load_state(st, cap, lane, h);
+  // the digest's 32-bit words j and 8 + j: halves of 64-bit words j / 2 and
+  // 4 + j / 2
+  uint32_t* st32 = reinterpret_cast<uint32_t*>(st);
+  const size_t w0 = (static_cast<size_t>(j / 2) * cap + lane) * 2 + (j & 1);
+  const size_t w8 = (static_cast<size_t>(4 + j / 2) * cap + lane) * 2 + (j & 1);
+  uint32_t a, b;
+  simd512_64_j(h, j, st32[w0], st32[w8], tb, a, b);
+  if (i < n) {
+    st32[w0] = a;
+    st32[w8] = b;
+  }
+}
+
+// stage 11 and the compare: echo, as groestl; the digest's first 32 bytes
+// against the job's target (search: winners) or the row's limbs (verify:
+// failures), taken as launch offsets first + i; the block's min top limb
+template <bool kVerify>
+__global__ void __launch_bounds__(kTabThreads, 1)
+    echo_kernel(const X11Job job, const uint32_t* __restrict__ limbs,
+                uint32_t first, uint32_t n, const uint64_t* __restrict__ st,
+                uint32_t cap, uint32_t* out, int k,
+                const uint32_t* __restrict__ tb, uint32_t row) {
+  const AesTab T{copy_tables(tb, kAesOff) + (threadIdx.x & 31) * 4, row};
+  uint32_t best = kNoWinner;
+  for (uint32_t i = blockIdx.x * kTabThreads + threadIdx.x; i < n;
+       i += gridDim.x * kTabThreads) {
+    uint64_t h[8];
+    load_state(st, cap, i, h);
     uint32_t d[8], hl[8], t[8];
+    echo512_64(h, T, d);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) t[j] = __ldg(&limbs[lane * 8 + j]);
-    x11_chain(hw, sm, tb, cnt_order, d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) hl[j] = d[7 - j];
-    best = hl[0];
-    if (!limbs_le(hl, t)) take_slot(out, k, static_cast<uint32_t>(lane), hl[0]);
+    for (int j = 0; j < 8; ++j) {
+      hl[j] = d[7 - j];
+      t[j] = kVerify ? __ldg(&limbs[static_cast<size_t>(first + i) * 8 + j])
+                     : job.target[j];
+    }
+    best = min(best, hl[0]);
+    if (limbs_le(hl, t) != kVerify) take_slot(out, k, first + i, hl[0]);
   }
-  block_min_to<kT>(best, &out[2 * k + 2]);
+  block_min_to<kTabThreads>(best, &out[2 * k + 2]);
 }
 
-unsigned int blocks_for(unsigned long long lanes) {
-  return static_cast<unsigned int>((lanes + kX11Threads - 1) / kX11Threads);
+unsigned int blocks_for(uint32_t threads, int per_block) {
+  return static_cast<unsigned int>((static_cast<uint64_t>(threads) + per_block - 1) /
+                                   per_block);
+}
+
+// the table stages' grid: one block an SM, no more than the lanes fill
+unsigned int table_grid(uint32_t n, int threads) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const unsigned int need = blocks_for(n, threads);
+  return need < static_cast<unsigned int>(sms) ? need : static_cast<unsigned int>(sms);
+}
+
+// the kernels by stage (1-11; 12, 13: the verify's first and last), for
+// their launch shape and their attributes
+const void* stage_fn(int stage) {
+  switch (stage) {
+    case 1: return reinterpret_cast<const void*>(blake_search_kernel);
+    case 2: return reinterpret_cast<const void*>(stage_kernel<2>);
+    case 3: return reinterpret_cast<const void*>(groestl_kernel);
+    case 4: return reinterpret_cast<const void*>(stage_kernel<4>);
+    case 5: return reinterpret_cast<const void*>(stage_kernel<5>);
+    case 6: return reinterpret_cast<const void*>(stage_kernel<6>);
+    case 7: return reinterpret_cast<const void*>(stage_kernel<7>);
+    case 8: return reinterpret_cast<const void*>(stage_kernel<8>);
+    case 9: return reinterpret_cast<const void*>(shavite_kernel);
+    case 10: return reinterpret_cast<const void*>(simd_kernel);
+    case 11: return reinterpret_cast<const void*>(echo_kernel<false>);
+    case 12: return reinterpret_cast<const void*>(blake_verify_kernel);
+    case 13: return reinterpret_cast<const void*>(echo_kernel<true>);
+    default: return nullptr;
+  }
+}
+bool table_stage(int stage) { return stage == 3 || stage == 9 || stage == 11 || stage == 13; }
+int stage_threads(int stage) {
+  return stage == 3 ? kGroThreads : table_stage(stage) ? kTabThreads : kThreads;
+}
+int stage_smem(int stage) { return table_stage(stage) ? kTabBytes : 0; }
+
+// the FMA pipe's launch parameters
+Fma make_fma() {
+  Fma f;
+  for (int r = 0; r < 32; ++r) f.pow2[r] = 1u << r;
+  return f;
+}
+const Fma kFma = make_fma();
+
+// Launch stage `stage` over the chunk's n lanes (offsets first..first+n-1)
+// on s; the chunk's state at st (stride cap). job: the search's job (stages
+// 1, 11) or, for the verify, its counter order; words, limbs: the verify's
+// rows (stages 12, 13).
+cudaError_t launch_stage(int stage, const X11Job& job, const uint32_t* words,
+                         const uint32_t* limbs, uint32_t first, uint32_t n,
+                         uint64_t* st, uint32_t cap, uint32_t* out, int k,
+                         const uint32_t* tb, cudaStream_t s) {
+  if (table_stage(stage)) {
+    cudaError_t e = cudaFuncSetAttribute(stage_fn(stage),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         stage_smem(stage));
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned int b = blocks_for(n, kThreads), g = table_grid(n, kTabThreads);
+  switch (stage) {
+    case 1: blake_search_kernel<<<b, kThreads, 0, s>>>(job, first, n, st, cap); break;
+    case 12: blake_verify_kernel<<<b, kThreads, 0, s>>>(words, first, n, st, cap); break;
+    case 2: stage_kernel<2><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 3:
+      groestl_kernel<<<table_grid(n, kGroThreads), kGroThreads, kTabBytes, s>>>(
+          st, n, cap, tb, kRowBytes);
+      break;
+    case 4: stage_kernel<4><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 5: stage_kernel<5><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 6: stage_kernel<6><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 7: stage_kernel<7><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 8: stage_kernel<8><<<b, kThreads, 0, s>>>(st, n, cap, tb, kFma); break;
+    case 9:
+      shavite_kernel<<<g, kTabThreads, kTabBytes, s>>>(st, n, cap, tb, kRowBytes,
+                                                       job.cnt_order);
+      break;
+    case 10:
+      simd_kernel<<<blocks_for(n * kSimdGroup, kThreads), kThreads, 0, s>>>(st, n, cap, tb);
+      break;
+    case 11:
+      echo_kernel<false><<<g, kTabThreads, kTabBytes, s>>>(job, limbs, first, n, st, cap,
+                                                           out, k, tb, kRowBytes);
+      break;
+    case 13:
+      echo_kernel<true><<<g, kTabThreads, kTabBytes, s>>>(job, limbs, first, n, st, cap,
+                                                          out, k, tb, kRowBytes);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// the chain over one chunk: the first stage, 2-10, the last
+cudaError_t launch_chain(bool verify, const X11Job& job, const uint32_t* words,
+                         const uint32_t* limbs, uint32_t first, uint32_t n,
+                         uint64_t* st, uint32_t cap, uint32_t* out, int k,
+                         const uint32_t* tb, cudaStream_t s) {
+  for (int stage = 1; stage <= 11; ++stage) {
+    const int which = verify && stage == 1 ? 12 : verify && stage == 11 ? 13 : stage;
+    const cudaError_t e = launch_stage(which, job, words, limbs, first, n, st, cap,
+                                       out, k, tb, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+bool chunk_ok(unsigned long long first, unsigned long long n, unsigned long long cap,
+              int k) {
+  return k >= 1 && n >= 1 && n <= cap && cap <= 0xFFFFFFFFull &&
+         first + n <= (1ull << 32) && n * kSimdGroup <= 0xFFFFFFFFull;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch init, search and finalize on `stream` without synchronizing. job:
-// host pointer to the 29 job words (copied into the kernel parameters);
-// lanes: the in-range lanes (<= 2^32); out: device pointer to 2k+3 words;
-// tables: device pointer to the table block. Returns a cudaError_t.
-int otedama_x11_search(const uint32_t* job, unsigned long long lanes, int k,
-                       uint32_t* out, const uint64_t* tables, void* stream) {
-  if (k < 1 || lanes > (1ull << 32)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  X11Job j;
-  static_assert(sizeof(X11Job) == kJobWords * 4, "X11Job must be the packed words");
-  memcpy(&j, job, sizeof(j));
-  init_buffer<<<1, 64, 0, s>>>(out, k);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (lanes > 0) {
-    x11_search_kernel<kX11Threads><<<blocks_for(lanes), kX11Threads, 0, s>>>(
-        j, lanes, out, k, tables);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  finalize_buffer<<<1, 1, 0, s>>>(out, k, 0u);
+// The buffer's init before a search's or a verify's chunks, and its
+// finalize after them (the slots sorted by offset), on `stream`.
+int otedama_x11_begin(uint32_t* out, int k, void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  init_buffer<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(out, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Validate `lanes` shares on `stream` without synchronizing: words, a device
-// pointer to row-major [lanes, 20] big-endian header words; limbs to
-// [lanes, 8] target limbs (most-significant-first); out to 2k+3 words.
-// Failing lane offsets go into the table, in lane order. Returns a
-// cudaError_t.
-int otedama_x11_verify(const uint32_t* words, const uint32_t* limbs,
-                       unsigned long long lanes, int k, uint32_t* out,
-                       unsigned int cnt_order, const uint64_t* tables, void* stream) {
-  if (k < 1 || lanes > 0xFFFFFFFFull) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  init_buffer<<<1, 64, 0, s>>>(out, k);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (lanes > 0) {
-    x11_verify_kernel<kX11Threads><<<blocks_for(lanes), kX11Threads, 0, s>>>(
-        words, limbs, lanes, out, k, cnt_order, tables);
-    e = cudaGetLastError();
+int otedama_x11_end(uint32_t* out, int k, void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  finalize_buffer<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, k, 0u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One chunk of a search on `stream`, without synchronizing: launch offsets
+// first..first+n-1 (first + n <= 2^32) of the job (host pointer to its 29
+// words, copied into the kernel parameters); state: device pointer to the
+// chunk's 8 x cap 64-bit words (n <= cap); out: device pointer to 2k+3
+// words; tables: device pointer to the table block. Returns a cudaError_t.
+int otedama_x11_search_chunk(const uint32_t* job, unsigned long long first,
+                             unsigned long long n, int k, uint32_t* out,
+                             const uint32_t* tables, uint64_t* state,
+                             unsigned long long cap, void* stream) {
+  if (!chunk_ok(first, n, cap, k)) return static_cast<int>(cudaErrorInvalidValue);
+  X11Job j;
+  static_assert(sizeof(X11Job) == kJobWords * 4, "X11Job must be the packed words");
+  memcpy(&j, job, sizeof(j));
+  return static_cast<int>(launch_chain(false, j, nullptr, nullptr,
+                                       static_cast<uint32_t>(first),
+                                       static_cast<uint32_t>(n), state,
+                                       static_cast<uint32_t>(cap), out, k, tables,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// One chunk of a verify on `stream`, without synchronizing: rows
+// first..first+n-1 of words (device, row-major [rows, 20] big-endian header
+// words) against limbs (device, [rows, 8], most-significant-first); failing
+// row offsets go into out. Returns a cudaError_t.
+int otedama_x11_verify_chunk(const uint32_t* words, const uint32_t* limbs,
+                             unsigned long long first, unsigned long long n, int k,
+                             uint32_t* out, unsigned int cnt_order,
+                             const uint32_t* tables, uint64_t* state,
+                             unsigned long long cap, void* stream) {
+  if (!chunk_ok(first, n, cap, k)) return static_cast<int>(cudaErrorInvalidValue);
+  X11Job j{};
+  j.cnt_order = cnt_order;
+  return static_cast<int>(launch_chain(true, j, words, limbs,
+                                       static_cast<uint32_t>(first),
+                                       static_cast<uint32_t>(n), state,
+                                       static_cast<uint32_t>(cap), out, k, tables,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// Stage `stage` alone (1-11 of the search; 12, 13 the verify's first and
+// last) over n lanes of the state, for its time; the job and out as for a
+// search chunk at offset 0, limbs and words as for a verify chunk.
+int otedama_x11_stage(int stage, const uint32_t* job, const uint32_t* words,
+                      const uint32_t* limbs, unsigned long long n, int k,
+                      uint32_t* out, const uint32_t* tables, uint64_t* state,
+                      unsigned long long cap, void* stream) {
+  if (!chunk_ok(0, n, cap, k) || stage_fn(stage) == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  X11Job j;
+  memcpy(&j, job, sizeof(j));
+  return static_cast<int>(launch_stage(stage, j, words, limbs, 0,
+                                       static_cast<uint32_t>(n), state,
+                                       static_cast<uint32_t>(cap), out, k, tables,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// A stage's kernel (numbered as for otedama_x11_stage) on the current
+// device: its threads a block, registers a thread, local memory (stack
+// and spills) a thread, shared memory a block, and its resident blocks an
+// SM. Returns a cudaError_t.
+int otedama_x11_kernel_info(int stage, int* threads, int* regs, int* local_bytes,
+                            int* smem_bytes, int* blocks_per_sm) {
+  const void* fn = stage_fn(stage);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tab = table_stage(stage);
+  if (tab) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         stage_smem(stage));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  finalize_buffer<<<1, 1, 0, s>>>(out, k, 0u);
-  return static_cast<int>(cudaGetLastError());
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *threads = stage_threads(stage);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = static_cast<int>(a.sharedSizeBytes) + stage_smem(stage);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, *threads, stage_smem(stage)));
 }
 
 const char* otedama_x11_error_string(int code) {

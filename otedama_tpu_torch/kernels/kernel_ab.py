@@ -1,6 +1,6 @@
 """Two trees of the port's kernels on one card, in turns.
 
-    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b2,b5]
+    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b2,b5,b6]
         [--lanes 1024,4096,262144]
 
 ``A`` and ``B`` are directories that each hold an ``otedama_tpu_torch``
@@ -9,8 +9,9 @@ under the gitignored ``build/`` (``git archive <commit> otedama_tpu_torch
 | tar -x -C build/<name>``), or a copy with one design choice edited.
 Each tree runs in a process of its own and is driven only through its
 public wrappers (``scrypt_cuda.romix``, ``scrypt_cuda.scrypt_verify``,
-``sha256_cuda.sha256d_search``, ``sha256_cuda.sha256d_verify``), so two
-designs with different C interfaces compare. The script builds both
+``sha256_cuda.sha256d_search``, ``sha256_cuda.sha256d_verify``,
+``x11_cuda.x11_search``, ``x11_cuda.x11_verify``), so two designs with
+different C interfaces compare. The script builds both
 trees at once (each into its own ``build/``, only the libraries the
 chosen kernels need, printing their registers and spills), then times
 them A, B, B, A with CUDA events (median of three rounds after a warm-up
@@ -25,14 +26,21 @@ call):
   where the tree's wrapper takes one (as the ledger calls it), the
   host's enqueue of one call (host clock over 200 calls, no wait), the
   card's time a call with the host's enqueue hidden (``device_ms``),
-  and up to 4,096 shares one call alone (events around it, waited for).
+  and up to 4,096 shares one call alone (events around it, waited for);
+- B6 (``x11_search``) per launch at 2^20, 2^22 and 2^24 lanes, and the
+  verify (``x11_verify``, k = 16, 5 planted failures) per 1,024-share
+  call, back to back and with the host's enqueue hidden.
 
 Every process makes the same inputs from one seed and reports a digest
 of each output (for B1 also at counts 1, 3, 256 x 37 + 1, across 2^32,
 with no lane in range, and overflowed: count and min only; for B2 at
 counts 0, 1, 37, 255 and 256 x 37 + 1, a ``words20[off:]`` view, an
 overflowed batch — count and min — and a batch whose one failure is its
-last lane); the script fails unless A's digests equal B's. It needs a
+last lane; for B6 searches at counts 0, 1, 37, one past a 512-lane block
+and one past a 2^19-lane chunk, an overflowed window — count and min —,
+a window whose nonces wrap past 2^32, each shavite counter order, and
+verify calls at counts 0, 1, 1,000 and 1,024); the script fails unless
+A's digests equal B's. It needs a
 CUDA card and prints the card's name and power limit first and last.
 """
 
@@ -65,21 +73,24 @@ def _import_tree(tree: Path):
     from otedama_tpu_torch.kernels import cuda_build
     from otedama_tpu_torch.kernels import scrypt_cuda as scc
     from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import x11_cuda as xc
     if not Path(scc.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {scc.__file__}, not the tree {tree}")
-    return cuda_build, scc, sc
+    return cuda_build, scc, sc, xc
 
 
 def build_tree(tree: Path, kernels: list[str]) -> dict:
     """Build the libraries of a tree that ``kernels`` need; their hot
     kernels' registers and spills."""
-    cuda_build, scc, sc = _import_tree(tree)
+    cuda_build, scc, sc, xc = _import_tree(tree)
     report = {}
     wanted = []
     if "b5" in kernels:
         wanted.append((scc, ("romix_kernel",)))
     if "b1" in kernels or "b2" in kernels:
         wanted.append((sc, ("search_kernel", "verify_kernel")))
+    if "b6" in kernels:
+        wanted.append((xc, ("x11",)))
     for mod, names in wanted:
         _, info = cuda_build.build(mod.SOURCE, mod.HEADERS)
         fn = None
@@ -157,7 +168,7 @@ def digest(t) -> str:
 
 def time_tree(tree: Path, kernels: list[str], lanes_list: list[int]) -> dict:
     import torch
-    _, scc, sc = _import_tree(tree)
+    _, scc, sc, xc = _import_tree(tree)
     dev = torch.device("cuda", 0)
     times, digests = {}, {}
 
@@ -273,7 +284,71 @@ def time_tree(tree: Path, kernels: list[str], lanes_list: list[int]) -> dict:
             if n <= 4096:
                 times[f"B2 {n} lanes, one call alone"] = alone_ms(
                     lambda: verify(w, t, n))
+    if "b6" in kernels:
+        _time_b6(xc, dev, on_card, times, digests)
     return {"times": times, "digests": digests}
+
+
+B6_LANES = (1 << 20, 1 << 22, 1 << 24)
+B6_VARIANTS = ("r3-recall", "identity", "c0-cycle", "swap-mid", "reverse-all")
+
+
+def _time_b6(xc, dev, on_card, times, digests) -> None:
+    """B6's digests and times through ``x11_search`` and ``x11_verify``."""
+    import torch
+
+    from otedama_tpu_torch.kernels import x11_torch as xt
+
+    rng = np.random.default_rng(SEED + 6)
+    prefix = rng.integers(0, 256, 76, dtype=np.uint8).tobytes()
+    out = torch.empty(2 * K + 3, dtype=torch.int32, device=dev)
+
+    def limbs_of(v: int) -> list[int]:
+        return [(v >> (224 - 32 * j)) & 0xFFFFFFFF for j in range(8)]
+
+    def kept(buf) -> str:
+        """every word, or the count and the min of an overflowed buffer"""
+        b = buf.cpu().numpy().view(np.uint32)
+        k = (len(b) - 3) // 2
+        n = int(b[2 * k])
+        b = b if n <= k else b[[2 * k, 2 * k + 2]]
+        return f"{hashlib.sha256(b.tobytes()).hexdigest()[:16]} n={n}"
+
+    for name, base, count, top in (
+            ("count 0", 5, 0, (1 << 256) - 1), ("count 1", 77, 1, 1 << 255),
+            ("count 37", int(rng.integers(1 << 32)), 37, 1 << 253),
+            ("one past a 512-lane block", int(rng.integers(1 << 32)), 513,
+             1 << 250),
+            ("one past a 2^19-lane chunk", int(rng.integers(1 << 32)),
+             (1 << 19) + 1, 1 << 243),
+            ("overflowed (count, min)", 7, 1 << 14, 1 << 251),
+            ("nonces wrap past 2^32", (1 << 32) - 1000, 1 << 14, 1 << 246)):
+        digests[f"B6 search, {name}"] = kept(xc.x11_search(
+            prefix, base, count - 1, limbs_of(top), batch=max(count, 1),
+            k=K, device=dev, out=out))
+    for v in B6_VARIANTS:
+        digests[f"B6 search, counter order {v}"] = kept(xc.x11_search(
+            prefix, 99, 4095, limbs_of(1 << 250), batch=4096, k=K,
+            device=dev, cnt_order=xt.cnt_variant_order(v), out=out))
+    for lanes in B6_LANES:
+        def search(lanes=lanes):
+            xc.x11_search(prefix, 0, lanes - 1, limbs_of(0), batch=lanes,
+                          k=K, device=dev, out=out)
+        times[f"B6 search {lanes} lanes"] = time_ms(search, 3)
+    rows = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
+    words = on_card(xt.headers_to_words(rows))
+    limbs = np.full((1024, 8), 0xFFFFFFFF, np.uint32)
+    limbs[[0, 100, 511, 512, 1023]] = 0
+    limbs = on_card(limbs)
+    for count in (0, 1, 1000, 1024):
+        digests[f"B6 verify, count {count}"] = kept(xc.x11_verify(
+            words, limbs, count, k=K, out=out))
+
+    def verify():
+        xc.x11_verify(words, limbs, 1024, k=K, out=out)
+
+    times["B6 verify 1024 shares"] = time_ms(verify, 20)
+    times["B6 verify 1024 shares, the card's time alone"] = device_ms(verify, 20)
 
 
 # -- the parent: both trees in turns ----------------------------------------------
@@ -291,7 +366,7 @@ def run_child(tree: Path, *args: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", type=Path)
-    ap.add_argument("--kernels", default="b1,b5")  # of b1, b2, b5
+    ap.add_argument("--kernels", default="b1,b5")  # of b1, b2, b5, b6
     ap.add_argument("--lanes", default="1024,4096,262144")
     ap.add_argument("--child", type=Path)
     ap.add_argument("--build", action="store_true")

@@ -608,10 +608,17 @@ class ScryptPythonBackend:
 
 # -- x11 ------------------------------------------------------------------------
 
-# lanes per x11 launch on the card (one lane a thread; the engine groups
-# launches as for sha256d): chip_smoke.py phase 33 times B6 at this size
-# and below (PERF.md section 6)
-X11_CUDA_BATCH = 1 << 22
+# lanes per x11 launch on the card (the engine groups launches as for
+# sha256d, three a group, two groups in flight): a launch on B6's flat
+# plateau (2^20 to 3 x 2^23 lanes, the same ns a lane) whose group of
+# three takes about 0.5 s. A group's winners get one host re-check pass
+# (_X11Backend._digests, 0.15-0.33 s on a busy host), and the engine
+# dispatches the group after next only when that pass is done, so the
+# pass hides behind ONE group on the card: a 0.25 s group left the card
+# idle whenever the pass ran long. 48 chunks of the launch sequence
+# (x11_cuda.CHUNK). chip_smoke.py phase 33 times B6 at this size and
+# beside it (PERF.md section 6)
+X11_CUDA_BATCH = 3 << 23
 
 
 def _offsets_to_nonces(bufs: np.ndarray, windows, k: int) -> np.ndarray:
@@ -657,8 +664,11 @@ class X11CudaBackend(_CardBackend, _X11Backend):
     the nonce of each lane is made on the card, the winners decided
     exactly there. One launch covers a batch of ``X11_CUDA_BATCH`` lanes;
     the engine groups launches before one read-back, on the backend's own
-    stream. Between calls it holds only its stream; ``close()`` refuses
-    further calls."""
+    stream. Its launches pass each chunk's values through one state
+    buffer (32 MiB, ``x11_cuda.state_words``), which they share safely
+    because each is enqueued under the backend's lock on its one stream;
+    between calls it holds its stream and that buffer, and ``close()``
+    refuses further calls and frees the buffer once they have finished."""
 
     name = "x11-cuda"
     preferred_batch = X11_CUDA_BATCH
@@ -667,6 +677,18 @@ class X11CudaBackend(_CardBackend, _X11Backend):
     def __init__(self, device="cuda", winner_depth: int | None = None):
         super().__init__(device, winner_depth)
         self._init_card("X11CudaBackend")
+        self._state: torch.Tensor | None = None
+
+    def _release(self) -> None:
+        self._state = None
+
+    def _state_for_launch(self) -> torch.Tensor:
+        """The state buffer; called under the enqueue lock, on the
+        backend's stream."""
+        if self._state is None:
+            self._state = torch.empty(x11_cuda.state_words(self.max_batch),
+                                      dtype=torch.int64, device=self.device)
+        return self._state
 
     def precompile(self, jc: JobConstants | None = None,
                    count: int | None = None) -> float:
@@ -683,7 +705,8 @@ class X11CudaBackend(_CardBackend, _X11Backend):
         def launch(base, count, out):
             x11_cuda.x11_search(jc.header76, base, count - 1, jc.limbs,
                                 batch=count, k=k, device=self.device,
-                                cnt_order=order, stream=self.stream, out=out)
+                                cnt_order=order, stream=self.stream, out=out,
+                                state=self._state_for_launch())
 
         return _launch_rows(self.device, self.stream, windows, k, launch,
                             self._enqueue())

@@ -202,7 +202,9 @@ class ValidationBackend:
     persist and only grow: one copy in, the kernels, one read-back); the
     scrypt tier's V scratch is shared, so a lock holds one dispatch's
     scrypt launches together while they are enqueued (the wait for the
-    read-back is outside it), as ``ScryptCudaBackend`` does.
+    read-back is outside it), as ``ScryptCudaBackend`` does. An x11
+    dispatch's stages pass their values through a state buffer of the
+    dispatch's own, so x11 dispatches interleave on the stream freely.
     """
 
     def __init__(self, *, min_batch: int = VALIDATE_MIN_BATCH,
@@ -378,6 +380,8 @@ class ValidationBackend:
                                         scratch=self._scratch_for(n),
                                         stream=self.stream)
             elif x11:
+                # no lock: each dispatch's stages pass their values through
+                # a state of its own (x11_verify's default, for this call)
                 buf = x11_cuda.x11_verify(w, t, n, k=k, stream=self.stream,
                                           out=slot.output(k))
             else:

@@ -3,18 +3,20 @@ package's on the CPU.
 
 - the copied host-tier stage modules, stage by stage, and their constants;
 - the plain PyTorch chain (``x11_torch``, the design of kernel B6) against
-  the reference's ``x11_digest_batch`` on 64 seeded headers and the Dash
+  the reference's ``x11_digest_batch`` on 8 seeded headers and the Dash
   genesis header, under each of the five shavite counter orders;
 - the plain winner buffer against ONE eager call of the reference's
-  ``jnp_chain.x11_winner_step`` (an eager chain costs tens of seconds on
-  this CPU; no other jnp chain call is made), and the plain failure buffer
+  ``jnp_chain.x11_winner_step`` (a module fixture: an eager chain costs
+  tens of seconds on this CPU whatever its lanes; no other jnp chain call
+  is made), and the plain failure buffer
   against ``digest_limbs``, ``le256`` and ``compact_failures`` fed with the
   oracle's digests;
 - the search backends, ``pow_digest``, the share validator, and a solo
   ``Application`` mining x11 on the CPU;
 - the kernel source's constant literals and table layout against the
-  port's host tier (the kernel itself runs only on the card:
-  ``chip_smoke.py`` phases 29–33).
+  port's host tier (the kernels themselves run only on the card:
+  ``chip_smoke.py`` phases 29–33; their table forms, lookups, simd's NTT
+  and the launch sequence's chunks: ``test_torch_x11_tables.py``).
 """
 
 from __future__ import annotations
@@ -159,7 +161,7 @@ def test_x11_stays_uncertified_and_dash_refuses():
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_plain_chain_matches_reference(variant):
-    headers = _headers(20261018, 64)
+    headers = _headers(20261018, 8)
     headers = np.concatenate([
         headers, np.frombuffer(ref_x11.DASH_GENESIS_HEADER, np.uint8)[None]])
     got = x11_torch.x11_digest_chain(headers, cnt_variant=variant)
@@ -171,33 +173,40 @@ def test_plain_chain_matches_reference(variant):
             ref_x11.x11_digest(ref_x11.DASH_GENESIS_HEADER)
 
 
-def test_plain_winner_buffer_matches_the_jnp_winner_step():
-    """ONE eager call of the reference's device step on 8 headers, a
-    target planted between the lanes' digests so that some win, and the
-    last lane clamped out of range."""
+@pytest.fixture(scope="module")
+def jnp_winner_step():
+    """ONE eager call of the reference's device step on 5 headers, a target
+    planted between the lanes' digests so that some win, and the last lane
+    clamped out of range: (headers, digests, limbs, last, k, target, its
+    buffer)."""
     import jax.numpy as jnp
 
-    headers = _headers(7, 8)
+    headers = _headers(7, 5)
     variant = port_shavite.active_cnt_variant()
     digests = _ref_digests(headers, variant)
-    values = sorted(_value(d) for d in digests[:7])
-    target = values[3]                       # four of the seven in range win
+    values = sorted(_value(d) for d in digests[:4])
+    target = values[2]                       # three of the four in range win
     limbs = [int(x) for x in
              np.asarray([(target >> (224 - 32 * j)) & M32 for j in range(8)],
                         dtype=np.uint32)]
-    k, last = 3, 6                           # four winners overflow k = 3
+    k, last = 2, 3                           # three winners overflow k = 2
     with jaxcompat.enable_x64():
         want = np.asarray(jnp_chain.x11_winner_step(
             jnp.asarray(headers), jnp.asarray(np.asarray(limbs, np.uint32)),
             jnp.uint32(last), k=k, sbox_mode="table",
             cnt_variant=variant)).astype(np.int64)
+    return headers, digests, limbs, last, k, target, want
+
+
+def test_plain_winner_buffer_matches_the_jnp_winner_step(jnp_winner_step):
+    headers, digests, limbs, last, k, target, want = jnp_winner_step
     got = x11_torch.x11_winner_step(_words(headers), limbs, last, k=k)
     assert got.tolist() == want.tolist()
-    assert want[2 * k] == 4
+    assert want[2 * k] == 3
     # and with a table deep enough, the same compaction in lane order
     assert x11_torch.x11_winner_step(_words(headers), limbs, last,
-                                     k=8)[:4].tolist() == sorted(
-        i for i in range(7) if _value(digests[i]) <= target)
+                                     k=8)[:3].tolist() == sorted(
+        i for i in range(4) if _value(digests[i]) <= target)
 
 
 @functools.lru_cache(maxsize=1)
@@ -329,7 +338,8 @@ def test_card_paths_raise_without_a_card():
 
 def test_kernel_source_constants_match_the_host_tier():
     """The literals of ``csrc/x11.cu`` and its table-block offsets are the
-    port's host tier's constants (the kernel reads nothing else)."""
+    port's host tier's constants (the kernels read nothing else; the
+    table block's contents: ``test_torch_x11_tables.py``)."""
     src = (REPO / "otedama_tpu_torch/kernels/csrc/x11.cu").read_text()
 
     def literal(name):
@@ -346,17 +356,21 @@ def test_kernel_source_constants_match_the_host_tier():
     assert literal("kLuffaCNS") == [v for j in luffa.CNS for s in j for v in s]
     assert literal("kShaviteIV") == list(port_shavite.IV512)
     assert literal("kSimdIV") == list(simd.IV512)
+    w8 = re.search(r"__constant__ int kW8\[32\] = \{(.*?)\};", src, re.S).group(1)
+    assert [int(v) for v in w8.replace(",", " ").split()] == \
+        [pow(41, 8 * e, 257) for e in range(32)]
     offsets = dict(re.findall(r"constexpr int k(\w+)Off = (\d+);", src))
     at = 0
     starts = {}
     for name, n in x11_cuda.TABLE_LAYOUT:
         starts[name] = at
         at += n
+    assert starts == x11_cuda.table_offsets()
     assert {k: int(v) for k, v in offsets.items()} == {
         "Gro": starts["groestl"], "Aes": starts["aes"],
         "JhIv": starts["jh_iv"], "JhC": starts["jh_c"],
-        "Twist": starts["twist"], "WFinal": starts["w_final"],
-        "CubeIv": starts["cube_iv"], "Omega": starts["omega_pow"]}
+        "CubeIv": starts["cube_iv"], "SimdC": starts["simd_c"],
+        "Twist": starts["twist"], "WFinal": starts["w_final"]}
     assert f"kTableWords = {x11_cuda.TABLE_WORDS};" in src
     assert x11_cuda.table_block().shape == (x11_cuda.TABLE_WORDS,)
     assert x11_cuda.pack_cnt_order(x11_torch.cnt_variant_order("identity")) \

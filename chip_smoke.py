@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: ``python3 chip_smoke.py``.
 
 Builds the port's kernels from the sources in this checkout (one nvcc per
-source, started together), drives the solo sha256d, scrypt and x11 main
-paths, the pool ledger's share validation (sha256d, scrypt, x11), the
+source, started together), drives the solo sha256d, scrypt, x11 and ethash
+main paths, the pool ledger's share validation (sha256d, scrypt, x11,
+ethash), the
 supervised engine, warm algorithm switching, the chain RPC client, the
 stratum pool and client (pool mode with local mining, vardiff, upstream
 failover, a scrypt pool) and the P2P share-chain pool with PostgreSQL
@@ -16,7 +17,8 @@ Phases:
    loops' SASS by integer pipe (``cuobjdump -sass``); every B6 kernel's
    registers, spills, stack and resident warps an SM (none may spill or
    keep a stack); B6's instructions a lane by stage and pipe, from the
-   SASS of its counting build;
+   SASS of its counting build; B7's kernels' registers, local memory,
+   stack and warps (none may spill or keep a stack) and SASS by pipe;
 2. known answer: the bitcoin genesis block's nonce wins a 2^20 window;
 3. kernel against the plain PyTorch version on the card, buffer for buffer
    (few winners, target at a lane's hash and +-1, ragged counts — 1, 3,
@@ -197,7 +199,38 @@ Phases:
    smaller), phase 31's steady rates against B6's (the first window must
    reach 95%), the SM clock and power sampled; a
    sha256d -> x11 -> sha256d warm switch and an x11 probe verified
-   against the host chain.
+   against the host chain;
+34. ethash epoch 0: the compiled cache generator against the python chain
+   at 61 and 1,021 rows, exact; the epoch-0 cache (16,776,896 bytes) in
+   seconds; the DAG (1,073,739,904 bytes) by B7a, its time beside its
+   bound, against the plain ``derive_items`` on the first, the last two
+   and 2^16 random items and against ``calc_dataset_item`` on 8;
+35. B7b against the plain version, buffer for buffer: the full tier at
+   2^20 lanes and the light tier at 2^12, each with one winner, an
+   overflow at k = 16, a count ending mid-block and a window past 2^32;
+   B7c on 1,024 shares with forged ones at k = 16 and k = 256; 16 dense
+   results equal across the light and full plain versions and the host
+   oracle (``hashimoto_light_batch``);
+36. B7b full at 2^22 lanes, the engine's launch and 2^24, light at 2^14,
+   and a 1,024-share B7c call, each beside its bound (operations counted
+   from the SASS of B7's counting build; bytes), the SM clock and power
+   sampled;
+37. solo ethash: ``Application`` with ``mining.algorithm = "ethash"`` on
+   the card at epoch 0 (the light tier at once, the full tier when its
+   DAG lands: the time to it), 20 s on the full tier (its steady rate
+   >= 95% of B7b full's at the engine's launch), then jobs at blocks
+   29,990 (epoch 1 prefetched), 30,005 (mined) and 60,005 (not
+   prefetched: light, then full, epoch 0's DAG evicted): the times to
+   each epoch's first share and full tier, ``build_failures`` 0, at
+   most ``ETHASH_MAX_FULL_TIERS`` DAGs resident, the memory back after the
+   eviction and after the stop; every share through the host oracle,
+   the mock chain's refusals counted, B7a-B7b launched and the plain
+   version not;
+38. ethash at the pool ledger: 8 flushes of 1,024 epoch-0 shares (one in
+   ~256 forged) through ``PoolManager.on_share_batch`` and B7c, every
+   verdict the host oracle's (computed on spawned processes), the books,
+   the rails, one launch a flush; then 2 rounds of the 8 as concurrent
+   dispatches on one validator.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -268,7 +301,9 @@ def smi(query: str) -> str:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started (the
+    whole run must end within 1,200 s, builds included)."""
+    print(f"== {name}  [at {time.monotonic() - T0:.1f} s]", flush=True)
 
 
 def median_ms(fn, stream, reps: int, rounds: int = 3):
@@ -4891,6 +4926,736 @@ def x11_phases(dev, card: str, clock_mhz: float, counts: dict) -> list[dict]:
     }]
 
 
+# -- ethash (kernels B7a-B7c) -------------------------------------------------
+
+ETHASH_SOLO_S = 20.0          # phase 37's steady window at epoch 0
+ETHASH_FLUSHES = 8            # 1,024-share ethash flushes through the ledger
+SOLO_ETHASH_MIN_SHARE = 0.95  # phase 37's window against B7b full's rate
+ETHASH_DAG_SLICE = 1 << 20    # items a plain build_dataset call (phase 34)
+ETHASH_PLAIN_SLICE = 1 << 22  # lanes a plain hashimoto pass (phase 35)
+
+
+def ethash_limbs_of(v: int):
+    import numpy as np
+
+    return np.array([(v >> (224 - 32 * j)) & 0xFFFFFFFF for j in range(8)],
+                    dtype=np.uint32)
+
+
+def ethash_oracle(full_size: int, cache, header_hashes, nonces):
+    """The host oracle's results (``hashimoto_light_batch``) of many
+    shares, 1,024 a process on up to 8 spawned processes (a pass is ~5 s
+    of one core for 1,024 shares, and threads share one interpreter
+    lock): ``[N, 32]`` uint8. Every process it starts ends with it."""
+    import multiprocessing
+
+    import numpy as np
+
+    from otedama_tpu_torch.kernels import ethash as eth
+
+    hh = np.asarray(header_hashes, dtype=np.uint8).reshape(-1, 32)
+    nn = np.asarray(nonces, dtype=np.uint64)
+    parts = [(hh[i:i + 1024], nn[i:i + 1024]) for i in range(0, len(nn), 1024)]
+    workers = max(1, min(8, len(parts), os.cpu_count() or 1))
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        res = [r[1] for r in pool.map(
+            eth.hashimoto_light_batch, [full_size] * len(parts),
+            [cache] * len(parts), [p[0] for p in parts], [p[1] for p in parts])]
+    return np.concatenate(res) if res else np.zeros((0, 32), np.uint8)
+
+
+def ethash_resources(dev) -> None:
+    """Phase 1's part on B7: each kernel's registers, local memory (stack
+    and spills) and resident warps from the CUDA runtime, and ptxas's stack
+    and spills; fails if a kernel spills or keeps a stack."""
+    from otedama_tpu_torch.kernels import cuda_build
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+
+    for k in ec.kernel_info(dev):
+        print(f"   B7 {k['kernel']}: {k['threads']} threads a block, "
+              f"{k['registers']} registers, {k['local_bytes']} B of local "
+              f"memory a thread (stack and spills), {k['warps_per_sm']} "
+              "warps an SM", flush=True)
+        check(k["local_bytes"] == 0, f"B7 {k['kernel']} spills or keeps a "
+              f"stack: {k['local_bytes']} B of local memory")
+    stacks = [line.strip() for line in
+              ec.build_info.get("ptxas", "").splitlines() if "stack frame" in line]
+    check(all(line.startswith("0 bytes stack frame, 0 bytes spill stores")
+              for line in stacks), f"B7 ptxas: {stacks}")
+    if stacks:
+        print(f"   B7 ptxas: {len(stacks)} functions, every one with 0 bytes "
+              "of stack frame and spills", flush=True)
+    for kernel in ec.KERNELS:
+        for line in cuda_build.kernel_report(ec.build_info, kernel, loop=False):
+            if line.startswith("SASS"):
+                print(f"   B7 {line}", flush=True)
+
+
+def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
+    """Phases 34-36 (ethash, kernels B7a-B7c) at epoch 0; ``counts``: a
+    future of ``ethash_cuda.instruction_counts()``. Returns the kernels'
+    records (by name) and the epoch's state for phases 37-38."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+    from otedama_tpu_torch.kernels import ethash_torch as et
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels.card import Sampler
+    from otedama_tpu_torch.kernels.sha256_cuda import winner_buffer_words
+
+    rng = np.random.default_rng(SEED + 13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err = {"dag": 0, "full": 0, "light": 0, "verify": 0}
+    plain_ms = {}
+
+    def host_buf(t):
+        torch.cuda.synchronize(dev)
+        return t.cpu().numpy().view(np.uint32)
+
+    def equal(kind, name, a, b, k):
+        """every word when n <= k, else the count and the min"""
+        n = int(b[2 * k])
+        sel = slice(None) if n <= k else np.r_[2 * k, 2 * k + 2]
+        diff = np.abs(a[sel].astype(np.int64) - b[sel].astype(np.int64))
+        check(not diff.any(), f"{name}: kernel {a.tolist()[:40]} != plain "
+              f"{b.tolist()[:40]}")
+        max_err[kind] = max(max_err[kind], int(diff.max()))
+        return n
+
+    # -- 34. epoch 0 -------------------------------------------------------
+    phase("34 ethash epoch 0: the compiled cache generator against the "
+          "python chain, the epoch-0 cache, the DAG by B7a")
+    seed0 = eth.seed_hash(0)
+    for rows in (61, 1021):
+        t0 = time.monotonic()
+        want = eth._python_make_cache(rows, seed0)
+        py_s = time.monotonic() - t0
+        got = eth.make_cache(rows * eth.HASH_BYTES, seed0)
+        check(np.array_equal(got, want), f"the compiled generator != the "
+              f"python chain at {rows} rows")
+        print(f"   {rows} rows: the compiled generator = the python chain "
+              f"({py_s:.2f} s)", flush=True)
+    full_size, rows = eth.dataset_size(0), eth.cache_size(0) // eth.HASH_BYTES
+    t0 = time.monotonic()
+    cache = eth.make_cache(eth.cache_size(0), seed0)
+    cache_s = time.monotonic() - t0
+    cache_d = ec.cache_tensor(cache, dev)
+    n_items, n_pages = full_size // eth.HASH_BYTES, full_size // eth.MIX_BYTES
+    print(f"   epoch 0: cache {rows} rows ({cache.nbytes} B) built in "
+          f"{cache_s:.3f} s by the compiled generator "
+          f"({ec.cuda_build.HOST_FLAGS}); DAG {n_items} items, {n_pages} "
+          f"pages ({full_size} B); generator {eth.generator_info}", flush=True)
+    stream = torch.cuda.Stream(dev)
+    ec.dag_launches.reset()
+    t0 = time.monotonic()
+    dag = ec.build_dag(cache_d, full_size, stream=stream)
+    torch.cuda.synchronize(dev)
+    first_s = time.monotonic() - t0
+    check(ec.dag_launches.value == 1, "build_dag: not one launch")
+    # its time: rebuilds into the same pages (CUDA events)
+    dag_ms, dag_rounds = median_ms(
+        lambda: ec.build_dag(cache_d, full_size, stream=stream, out=dag),
+        stream, reps=1, rounds=3)
+    # the whole DAG against the plain version, every word
+    cache_p = et.source_tensor(cache, dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    plain = et.build_dataset(cache_p, full_size, chunk=ETHASH_DAG_SLICE)
+    torch.cuda.synchronize(dev)
+    plain_ms["dag"] = (time.monotonic() - t0) * 1e3
+    diff = int(((dag.view(-1, 16).to(torch.int64) & 0xFFFFFFFF) - plain)
+               .abs().max())
+    del plain
+    check(diff == 0, f"B7a != build_dataset on the {n_items} items")
+    max_err["dag"] = diff
+    host_items = [0, 1, n_items - 1] + [int(x) for x in
+                                         rng.integers(0, n_items, 5)]
+    got_host = dag.view(-1, 16)[torch.tensor(host_items, device=dev)].cpu().numpy()
+    for i, row in zip(host_items, got_host):
+        check(np.array_equal(row.view(np.uint32), eth.calc_dataset_item(cache, i)),
+              f"B7a item {i} != calc_dataset_item")
+    print(f"   B7a: the DAG in {first_s:.3f} s (first call, host clock); "
+          f"{dag_ms:.2f} ms a build ({', '.join(f'{x:.2f}' for x in dag_rounds)}"
+          f"; CUDA events); all {n_items} items = build_dataset, word for word "
+          f"(the plain version: {plain_ms['dag'] / 1e3:.2f} s, "
+          f"{ETHASH_DAG_SLICE} items a slice, host clock); 8 items = "
+          "calc_dataset_item", flush=True)
+
+    # -- 35. B7 against the plain version ---------------------------------------
+    from otedama_tpu_torch.runtime.search import (ETHASH_CUDA_BATCH,
+                                                  ETHASH_LIGHT_LANES)
+
+    phase("35 B7b (full at 2^20 lanes and the engine's 2^26, light at 2^12 "
+          "and the engine's 2^18) and B7c against ethash_torch on the card, "
+          "buffer for buffer")
+    hh = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+
+    def dense_limbs(base, lanes, full):
+        src = dag if full else cache_p
+        pf = et.full_page_fn(src) if full else et.light_page_fn(src)
+        s = et.seed_words(et.hash_words(hh).to(dev),
+                          et.window_nonces(base, lanes, dev))
+        _, res = et.hashimoto_words(full_size, pf, s)
+        return torch.stack(et.result_limbs(res), 1).cpu().numpy()
+
+    def search_case(name, full, base, lanes, last, limbs, k=16, chunk=None):
+        src = dag if full else cache_d
+        a = host_buf(ec.ethash_search(full_size, src, hh, base, last, limbs,
+                                      batch=lanes, k=k, full=full))
+        t0 = time.monotonic()
+        b = host_buf(et.winner_step(full_size, dag if full else cache_p, hh,
+                                    base, lanes, limbs, last + 1, k,
+                                    full=full, chunk=chunk))
+        plain_s = time.monotonic() - t0
+        n = equal("full" if full else "light", name, a, b, k)
+        print(f"   {'full' if full else 'light'} {name}: {lanes} lanes from "
+              f"{base:#x}, last {last}, k={k}, n={n}"
+              f"{' (overflow: count and min)' if n > k else ''}, min_h0="
+              f"{b[2 * k + 2]:#010x} equal", flush=True)
+        return b, plain_s
+
+    for full, lanes in ((True, 1 << 20), (False, 1 << 12)):
+        base = int(rng.integers(1 << 32))
+        lim = dense_limbs(base, lanes, full)
+        order = np.lexsort(lim.T[::-1])
+        best = tgt.limbs_to_target(lim[order[0]])
+        b, plain_s = search_case("one winner (target = the best lane's "
+                                 "result)", full, base, lanes, lanes - 1,
+                                 ethash_limbs_of(best))
+        check(int(b[32]) == 1 and int(b[0]) == int(order[0]),
+              f"one winner: {b.tolist()}")
+        b, _ = search_case("overflow at k = 16", full, base, lanes, lanes - 1,
+                           ethash_limbs_of(tgt.limbs_to_target(lim[order[63]])))
+        check(int(b[32]) == 64, f"overflow: n = {b[32]}")
+        search_case("a count ending mid-block", full, base, lanes, lanes - 38,
+                    ethash_limbs_of(tgt.limbs_to_target(lim[order[8]])))
+        search_case("a window past 2^32", full, (1 << 32) - lanes // 2, lanes,
+                    lanes - 1, ethash_limbs_of((1 << 256) // lanes * 8))
+    # the engine's own launches (phase 37): the full tier's ETHASH_CUDA_BATCH
+    # lanes, the light tier's ETHASH_LIGHT_LANES, ~8 winners each (k = 32:
+    # every word), the window past 2^32; the plain full tier hashed
+    # ETHASH_PLAIN_SLICE lanes at a time
+    for full, lanes in ((True, ETHASH_CUDA_BATCH), (False, ETHASH_LIGHT_LANES)):
+        b, plain_s = search_case(
+            "the engine's launch, ~8 winners", full, (1 << 32) - lanes // 3,
+            lanes, lanes - 1, ethash_limbs_of((1 << 256) // lanes * 8), k=32,
+            chunk=ETHASH_PLAIN_SLICE if full else None)
+        check(1 <= int(b[64]) <= 32, f"the engine's launch: n = {b[64]}")
+        plain_ms["full" if full else "light"] = plain_s * 1e3
+        print(f"   the plain version at {lanes} lanes: {plain_s:.2f} s "
+              "(host clock)", flush=True)
+    # B7c: 1,024 shares, each its own header hash and nonce, one in ~9 forged
+    n = 1024
+    hhs = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    nonces = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    res = et.hashimoto_dense(full_size, cache_p, hhs, nonces)[1]
+    vals = limbs_of_digests(res[:, ::-1].tobytes())
+    forged = rng.random(n) < 1 / 9
+    limbs = np.where(forged[:, None], limbs_step(vals, -1), vals)
+    nonces_d = torch.from_numpy(nonces.astype(np.int64)).to(dev)
+    rows_h, rows_n = ec.share_rows(hhs, nonces)
+    on = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+          for x in (rows_h, rows_n, limbs)]
+    for k in (16, 256):
+        a = host_buf(ec.ethash_verify(full_size, cache_d, *on, n, k=k))
+        t0 = time.monotonic()
+        b = host_buf(et.verify_step(full_size, cache_p, on[0], nonces_d,
+                                    on[2], n, k))
+        plain_ms["verify"] = (time.monotonic() - t0) * 1e3
+        got_n = equal("verify", f"verify k={k}", a, b, k)
+        check(got_n == int(forged.sum()), f"verify: {got_n} failures, "
+              f"{int(forged.sum())} forged")
+        if k == 256:
+            check(b[:got_n].tolist() == np.nonzero(forged)[0].tolist(),
+                  "verify: failures != the forged rows")
+        print(f"   B7c, {n} shares, k={k}: {got_n} failures = the forged rows"
+              f"{' (overflow: count and min)' if got_n > k else ''}; equal",
+              flush=True)
+    # 16 dense results: light and full plain, and the host oracle
+    dn = rng.integers(0, 1 << 32, 16, dtype=np.uint64)
+    lm, lr = et.hashimoto_dense(full_size, cache_p, hh, dn)
+    fm, fr = et.hashimoto_dense(full_size, dag, hh, dn, full=True)
+    hm, hr = eth.hashimoto_light_batch(full_size, cache, hh, dn)
+    check(np.array_equal(lm, fm) and np.array_equal(lm, hm)
+          and np.array_equal(lr, fr) and np.array_equal(lr, hr),
+          "dense results differ across light, full and the host oracle")
+    print("   16 dense results (mix digests and results) equal across the "
+          "light and full plain versions and hashimoto_light_batch", flush=True)
+
+    # -- 36. times ------------------------------------------------------------------
+    phase("36 B7 times beside the bound")
+    counted = counts.result()
+    print(f"   B7 from the SASS of its counting build ({counted['seconds']:.1f}"
+          f" s): an item {counted['item']}, a full-tier hash "
+          f"{counted['full']} (instructions: all, ALU pipe, FMA pipe); a "
+          f"light hash {ec.lane_ops(counted, 'light')} integer instructions",
+          flush=True)
+    out = torch.empty(winner_buffer_words(16), dtype=torch.int32, device=dev)
+
+    def bound(kind, lanes):
+        terms = ec.bound_ms(kind, lanes, counted, sms=sms, clock_mhz=clock_mhz,
+                            rows=rows, full_size=full_size,
+                            hbm_bytes_per_s=HBM_BYTES_PER_S)
+        by = max(terms, key=terms.get)
+        return terms[by], by, ", ".join(f"{k} {v:.4f} ms" for k, v in terms.items())
+
+    times = {}
+    with Sampler() as sampled:
+        for full, lanes in ((True, 1 << 22), (True, ETHASH_CUDA_BATCH),
+                            (True, 1 << 24), (False, 1 << 14),
+                            (False, ETHASH_LIGHT_LANES)):
+            src = dag if full else cache_d
+            ms, per = median_ms(lambda: ec.ethash_search(
+                full_size, src, hh, 0, lanes - 1, ethash_limbs_of(0),
+                batch=lanes, k=16, full=full, stream=stream, out=out),
+                stream, reps=3 if full else 1)
+            times[(full, lanes)] = ms
+            b_ms, by, text = bound("full" if full else "light", lanes)
+            print(f"   B7b {'full' if full else 'light'} {lanes} lanes: "
+                  f"{ms:.3f} ms ({', '.join(f'{t:.3f}' for t in per)}) = "
+                  f"{lanes / ms / 1e3:.2f} MH/s; bound {b_ms:.3f} ms by {by} "
+                  f"({b_ms / ms:.1%} of it; {text})", flush=True)
+        vout = torch.empty(winner_buffer_words(256), dtype=torch.int32, device=dev)
+        verify_ms, per = median_ms(lambda: ec.ethash_verify(
+            full_size, cache_d, *on, n, k=256, stream=stream, out=vout),
+            stream, reps=3)
+    v_bound, v_by, v_text = bound("verify", n)
+    print(f"   B7c, {n} shares a call: {verify_ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in per)}); bound {v_bound:.4f} ms by "
+          f"{v_by} ({v_text}): {n} lanes fill {n // ec.THREADS} blocks of "
+          f"{sms} SMs, so a call is about one lane's light hash", flush=True)
+    d_bound, d_by, d_text = bound("dag", n_items)
+    print(f"   B7a: {dag_ms:.2f} ms a build; bound {d_bound:.3f} ms by {d_by} "
+          f"({d_bound / dag_ms:.1%} of it; {d_text}); its 256 cache rows an "
+          f"item are {n_items * 256 * 64 / 1e9:.0f} GB of L2 reads", flush=True)
+    print(f"   {sampled.summary()}; {card}", flush=True)
+    full_ms = times[(True, ETHASH_CUDA_BATCH)]
+    light_ms = times[(False, ETHASH_LIGHT_LANES)]
+    f_bound, f_by, _ = bound("full", ETHASH_CUDA_BATCH)
+    l_bound, l_by, _ = bound("light", ETHASH_LIGHT_LANES)
+    src = "otedama_tpu_torch/kernels/csrc/ethash.cu"
+    records = {
+        "ethash_dag": {
+            "name": "ethash_dag", "route": "cuda", "source": src,
+            "replaces": "otedama_tpu/kernels/ethash.py:611",
+            "launches": 0, "max_abs_err": max_err["dag"], "ms": dag_ms,
+            "plain_ms": plain_ms["dag"], "bound_ms": d_bound,
+            "bound_by": d_by, "library_ms": None,
+            "path": f"epoch 0's DAG, {n_items} items, all compared (phase "
+                    "34); a launch is one wrapper call of one kernel launch"},
+        "ethash_search_full": {
+            "name": "ethash_search_full", "route": "cuda", "source": src,
+            "replaces": "otedama_tpu/kernels/ethash.py:501",
+            "launches": 0, "max_abs_err": max_err["full"], "ms": full_ms,
+            "plain_ms": plain_ms["full"], "bound_ms": f_bound,
+            "bound_by": f_by, "library_ms": None,
+            "path": f"B7b full at the engine's {ETHASH_CUDA_BATCH} lanes "
+                    "(ms, plain, bound); a launch is one wrapper call of 2 + "
+                    "ceil(lanes / 2^30) kernel launches (3 here)"},
+        "ethash_search_light": {
+            "name": "ethash_search_light", "route": "cuda", "source": src,
+            "replaces": "otedama_tpu/kernels/ethash.py:501",
+            "launches": 0, "max_abs_err": max_err["light"], "ms": light_ms,
+            "plain_ms": plain_ms["light"], "bound_ms": l_bound,
+            "bound_by": l_by, "library_ms": None,
+            "path": f"B7b light at the engine's {ETHASH_LIGHT_LANES} lanes "
+                    "(ms, plain, bound); a launch is one wrapper call of 2 + "
+                    "ceil(lanes / 2^30) kernel launches (3 here)"},
+        "ethash_verify": {
+            "name": "ethash_verify", "route": "cuda", "source": src,
+            "replaces": "otedama_tpu/kernels/ethash.py:542",
+            "launches": 0, "max_abs_err": max_err["verify"], "ms": verify_ms,
+            "plain_ms": plain_ms["verify"], "bound_ms": v_bound,
+            "bound_by": v_by, "library_ms": None,
+            "path": "B7c, 1,024 shares a call; a launch is one wrapper "
+                    "call of 2 + ceil(rows / 2^30) kernel launches (3 here)"},
+    }
+    state = {"cache": cache, "full_size": full_size,
+             "rate": ETHASH_CUDA_BATCH / times[(True, ETHASH_CUDA_BATCH)] * 1e3}
+    del dag, cache_d, cache_p
+    torch.cuda.empty_cache()
+    return {"records": records, "state": state}
+
+
+def ethash_solo_phase(dev, card: str, b7_rate: float) -> dict:
+    """Phase 37: solo ethash through ``Application`` at epoch 0, then
+    across two epoch boundaries. ``b7_rate``: B7b full's H/s at the
+    engine's launch (phase 36). Returns the launches of each B7 kernel."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.app import Application
+    from otedama_tpu_torch.config.schema import AppConfig
+    from otedama_tpu_torch.engine.jobs import header_from_share
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+    from otedama_tpu_torch.kernels import ethash_torch as et
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.kernels.card import Sampler
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.runtime.search import (ETHASH_CUDA_BATCH,
+                                                  ETHASH_MAX_FULL_TIERS)
+    from otedama_tpu_torch.utils import pow_host
+
+    chain_target = (1 << 256) // int(b7_rate / 2.0)     # ~2 shares a second
+    nbits = tgt.target_to_bits(chain_target)
+    chain_target = tgt.bits_to_target(nbits)
+    phase(f"37 main path: solo ethash Application on the card, mock chain "
+          f"nbits {nbits:#010x} (about 2 shares/s): epoch 0 light -> full, "
+          f"{ETHASH_SOLO_S:.0f} s steady, then blocks 29,990, 30,005 and "
+          "60,005")
+    cfg = AppConfig()
+    cfg.mining.algorithm = "ethash"
+    cfg.mining.device = "cuda"
+    cfg.work.enabled = True
+    cfg.work.poll_seconds = 0.2
+    chain = MockChainClient(nbits=nbits)
+    app = Application(cfg, chain=chain)
+    shares, outcomes = [], []
+    on_share, submit = app._on_share, chain.submit_block
+
+    async def record_share(share):
+        shares.append((time.monotonic(), share,
+                       app.worksource.get_job(share.job_id)))
+        await on_share(share)
+
+    async def record_submit(header):
+        outcome = await submit(header)
+        outcomes.append((header, outcome))
+        return outcome
+
+    app._on_share = record_share
+    chain.submit_block = record_submit
+    marks, resident = {}, []
+
+    async def until_(cond, timeout, what):
+        t_end = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < t_end, f"phase 37: {what} not within "
+                  f"{timeout:.0f} s")
+            await asyncio.sleep(0.01)
+        return time.monotonic()
+
+    async def watch_tiers(backend):
+        while True:
+            resident.append(len(backend.snapshot()["full_epochs"]))
+            await asyncio.sleep(0.05)
+
+    def first_share_of(epoch, after):
+        return next((t for t, s, j in shares if t >= after
+                     and j.block_number // eth.EPOCH_LENGTH == epoch), None)
+
+    async def run37():
+        await app.start()
+        try:
+            t_end = time.monotonic() + MAIN_PATH_BOUND_S
+            while app.engine.state.value != "running":
+                check(time.monotonic() < t_end, "ethash engine never started")
+                check(not any(t.done() and not t.cancelled() and t.exception()
+                              for t in app._tasks),
+                      "a background task failed before the engine started")
+                await asyncio.sleep(0.05)
+            t_start = time.monotonic()
+            backend = next(iter(app.engine.backends.values()))
+            tiers = asyncio.get_running_loop().create_task(watch_tiers(backend))
+            watch.start(app.engine)
+            marks["full0"] = await until_(
+                lambda: 0 in backend.snapshot()["full_epochs"], 60.0,
+                "epoch 0's full tier") - t_start
+            # the light calls dispatched before the upgrade drain first
+            await asyncio.sleep(2.0)
+            h0, t0 = app.engine.stats.hashes, time.monotonic()
+            with Sampler(1.0) as sampled:
+                await asyncio.sleep(ETHASH_SOLO_S)
+            h1, t1 = app.engine.stats.hashes, time.monotonic()
+            marks["window"] = (h1 - h0, t1 - t0, sampled.summary(),
+                               watch.between(t0, t1))
+            # epoch 1 prefetched from block 29,990, then mined from 30,005
+            chain.height = 29_989
+            tp = time.monotonic()
+            marks["prefetch1"] = await until_(
+                lambda: 1 in backend.snapshot()["full_epochs"], 60.0,
+                "epoch 1's prefetched DAG") - tp
+            chain.height = 30_004
+            t1s = time.monotonic()
+            await until_(lambda: first_share_of(1, t1s) is not None, 60.0,
+                         "a share of epoch 1")
+            marks["share1"] = first_share_of(1, t1s) - t1s
+            marks["calls1"] = dict(backend.snapshot())
+            torch.cuda.synchronize(dev)
+            mem_before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            # epoch 2, not prefetched: light, then full; epoch 0 evicted
+            chain.height = 60_004
+            t2s = time.monotonic()
+            await until_(lambda: first_share_of(2, t2s) is not None, 60.0,
+                         "a share of epoch 2")
+            marks["share2"] = first_share_of(2, t2s) - t2s
+            marks["full2"] = await until_(
+                lambda: 2 in backend.snapshot()["full_epochs"], 60.0,
+                "epoch 2's full tier") - t2s
+            await asyncio.sleep(1.0)
+            torch.cuda.synchronize(dev)
+            marks["memory"] = (mem_before, torch.cuda.memory_allocated(dev),
+                               torch.cuda.max_memory_allocated(dev))
+            marks["snapshot"] = backend.snapshot()
+            watch.stop()
+            tiers.cancel()
+            return backend
+        finally:
+            await app.stop()
+
+    counters = {"dag": ec.dag_launches, "full": ec.search_full_launches,
+                "light": ec.search_light_launches}
+    for c in counters.values():
+        c.reset()
+    et.calls.reset()
+    watch = HashWatch()
+    mem_idle = torch.cuda.memory_allocated(dev)
+    backend = asyncio.run(run37())
+    launches = {k: c.value for k, c in counters.items()}
+    torch.cuda.synchronize(dev)
+    mem_after = torch.cuda.memory_allocated(dev)
+    check(backend.name == "ethash-managed", f"the engine ran {backend.name}")
+    check(launches["dag"] >= 3 and launches["full"] > 0
+          and launches["light"] > 0 and et.calls.value == 0,
+          f"B7 launches {launches}, plain-version calls {et.calls.value}")
+    snap = marks["snapshot"]
+    check(snap["build_failures"] == 0, f"DAG builds failed: {snap}")
+    check(snap["full_epochs"] == [1, 2] and snap["evictions"] >= 1,
+          f"epochs after the switch: {snap}")
+    check(max(resident) <= ETHASH_MAX_FULL_TIERS,
+          f"{max(resident)} DAGs resident, ETHASH_MAX_FULL_TIERS "
+          f"{ETHASH_MAX_FULL_TIERS}")
+    before, after, peak = marks["memory"]
+    dag_bytes = eth.dataset_size(60_000)
+    check(after <= before + (64 << 20),
+          f"memory after epoch 0's eviction {after} B, before epoch 2 "
+          f"{before} B")
+    check(mem_after <= mem_idle + (64 << 20),
+          f"after the app's stop {mem_after} B on the card, {mem_idle} B "
+          "before it started")
+    # every share through the host oracle, an epoch a pass
+    by_epoch = {}
+    for _, share, job in shares:
+        by_epoch.setdefault(job.block_number, []).append((share, job))
+    for bn, rows in by_epoch.items():
+        headers = [header_from_share(j, s.extranonce2, s.ntime, s.nonce_word)
+                   for s, j in rows]
+        for (s, j), d in zip(rows, pow_host.pow_digests(headers, "ethash", bn)):
+            check(d == s.digest and int.from_bytes(d, "little") <= j.share_target,
+                  f"ethash share {s.nonce_word:#x} at block {bn} fails the "
+                  "host oracle")
+    refused = sum(not o.accepted for _, o in outcomes)
+    for header, outcome in outcomes:
+        check(outcome.accepted == (int.from_bytes(hashlib.sha256(
+            hashlib.sha256(header).digest()).digest(), "little")
+            <= chain_target), "the mock chain's verdict != sha256d's")
+    hashes, seconds, clocks, (steady, steady_text) = marks["window"]
+    check(steady >= SOLO_ETHASH_MIN_SHARE * b7_rate,
+          f"solo ethash steady {steady / 1e6:.2f} MH/s = {steady / b7_rate:.1%}"
+          f" of B7b full's {b7_rate / 1e6:.2f} MH/s")
+    print(f"   epoch 0: the engine's start to the full tier "
+          f"{marks['full0']:.2f} s (the cache by the compiled generator, "
+          f"B7b light meanwhile, B7a in the background); over "
+          f"{ETHASH_SOLO_S:.0f} s on the full tier {hashes} hashes in "
+          f"{seconds:.2f} s = {hashes / seconds / 1e6:.2f} MH/s; "
+          f"{steady_text}; = {steady / b7_rate:.1%} of B7b full's "
+          f"{b7_rate / 1e6:.2f} MH/s at {ETHASH_CUDA_BATCH} lanes; {clocks}",
+          flush=True)
+    print(f"   epoch 1: prefetched (cache and DAG) {marks['prefetch1']:.2f} s "
+          f"after the job at block 29,990; its first share "
+          f"{marks['share1']:.2f} s after the template moved to 30,005, on "
+          f"its full tier (calls then: full {marks['calls1']['full_calls']}, "
+          f"light {marks['calls1']['light_calls']}); epoch 2 (not "
+          f"prefetched): first share {marks['share2']:.2f} s, full tier "
+          f"{marks['full2']:.2f} s after block 60,005; epoch 0 evicted "
+          f"({snap['evictions']} evictions, resident DAGs at most "
+          f"{max(resident)} of {ETHASH_MAX_FULL_TIERS}); memory_allocated "
+          f"{before / 2**30:.3f} GiB before epoch 2, {after / 2**30:.3f} GiB "
+          f"after its upgrade and the eviction (peak {peak / 2**30:.3f} GiB, "
+          f"a DAG {dag_bytes / 2**30:.3f} GiB), {mem_after / 2**30:.3f} GiB "
+          f"after the app's stop ({mem_idle / 2**30:.3f} before); "
+          f"build_failures 0", flush=True)
+    print(f"   {len(shares)} shares over {len(by_epoch)} heights, each "
+          f"through the host oracle at or under its target; "
+          f"{len(outcomes)} block candidates, {refused} refused by the mock "
+          f"chain (it checks blocks by sha256d); launches: B7a "
+          f"{launches['dag']}, B7b full {launches['full']}, B7b light "
+          f"{launches['light']}; plain-version calls 0; {card}", flush=True)
+    return launches
+
+
+def ethash_ledger_phase(dev, card: str, cache) -> int:
+    """Phase 38: ethash shares at the pool ledger through B7c. Returns its
+    launches in the counted run."""
+    import numpy as np
+    import torch
+
+    from otedama_tpu_torch.db import connect_database
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+    from otedama_tpu_torch.kernels import ethash_torch as et
+    from otedama_tpu_torch.kernels import target as tgt
+    from otedama_tpu_torch.pool.blockchain import MockChainClient
+    from otedama_tpu_torch.pool.manager import PoolManager
+    from otedama_tpu_torch.runtime.validate import ShareCheck, \
+        ValidationBackend, dispatch_executor
+    from otedama_tpu_torch.stratum.server import AcceptedShare
+
+    phase(f"38 main path: {ETHASH_FLUSHES} ethash flushes of 1,024 (epoch 0) "
+          "through PoolManager.on_share_batch -> B7c")
+    rng = np.random.default_rng(SEED + 17)
+    full_size, block = eth.dataset_size(0), 101
+    total = ETHASH_FLUSHES * 1024
+    headers = rng.integers(0, 256, (total, 80), dtype=np.uint8)
+    t0 = time.monotonic()
+    hh, nonces = eth.share_fields(headers)
+    res = ethash_oracle(full_size, cache, hh, nonces)
+    print(f"   {total} shares hashed by the host oracle (hashimoto_light_batch"
+          f", 1,024 a spawned process) in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    values = [int.from_bytes(r.tobytes(), "big") for r in res]
+    byz = rng.random(total) < 1 / 256
+
+    def byzantine_difficulty(v: int) -> float:
+        s = (tgt.DIFF1_TARGET << 32) // v + 1
+        while (tgt.DIFF1_TARGET << 32) // s >= v:
+            s += 1
+        return s / (1 << 32)
+
+    flushes = []
+    for f in range(ETHASH_FLUSHES):
+        batch, honest = [], []
+        for i in range(1024 * f, 1024 * (f + 1)):
+            v = values[i]
+            diff = (byzantine_difficulty(v) if byz[i]
+                    else tgt.target_to_difficulty(v) * 0.5)
+            honest.append(v <= tgt.difficulty_to_target(diff))
+            batch.append(AcceptedShare(
+                session_id=i, worker_user=f"e.{i % 512}", job_id="eth-ledger",
+                difficulty=diff, actual_difficulty=diff,
+                digest=res[i][::-1].tobytes(), header=headers[i].tobytes(),
+                extranonce2=struct.pack(">I", i), ntime=1_700_000_000,
+                nonce_word=int(nonces[i]), is_block=False,
+                submitted_at=1_700_000_000.0, algorithm="ethash",
+                block_number=block))
+        flushes.append((batch, honest))
+    pm = PoolManager(connect_database(":memory:"), MockChainClient())
+    pm.validator = ValidationBackend(min_batch=128, tripwire_rate=0.05,
+                                     seed=SEED)
+    ec.verify_launches.reset()
+    et.calls.reset()
+
+    async def run38():
+        outs, secs = [], []
+        for batch, _ in flushes:
+            t = time.monotonic()
+            outs.append(await pm.on_share_batch(batch))
+            secs.append(time.monotonic() - t)
+        return outs, secs
+
+    outs, secs = asyncio.run(run38())
+    launches, plain = ec.verify_launches.value, et.calls.value
+    snap = pm.validator.snapshot()
+    honest_total = 0
+    for (batch, honest), outcomes_ in zip(flushes, outs):
+        for ok, outcome in zip(honest, outcomes_):
+            check(outcome == (("ok", "") if ok
+                              else ("err", "share failed validation")),
+                  f"ledger outcome {outcome} != the host oracle's verdict {ok}")
+        honest_total += sum(honest)
+    check(pm.shares.count() == honest_total
+          and pm.ledger_stats["shares_ok"] == honest_total
+          and pm.ledger_stats["shares_rejected"] == total - honest_total,
+          f"books: {pm.shares.count()} shares, {pm.ledger_stats}, honest "
+          f"{honest_total}")
+    check(snap["device_batches"] == ETHASH_FLUSHES
+          and snap["validated_device"] == total and snap["device_errors"] == 0
+          and snap["tripwire_mismatches"] == 0 and snap["overflows"] == 0
+          and snap["host_batches"] == 0, f"validator snapshot {snap}")
+    check(launches == ETHASH_FLUSHES and plain == 0,
+          f"B7c launches {launches}, plain calls {plain}")
+    rates = sorted(1024 / s for s in secs)
+    print(f"   {total} shares in {sum(secs):.2f} s = {total / sum(secs):.0f} "
+          f"shares/s; per flush median {rates[len(rates) // 2]:.0f}, min "
+          f"{rates[0]:.0f}, max {rates[-1]:.0f}; every outcome = the host "
+          f"oracle's; books: {pm.shares.count()} shares = the honest ones, "
+          f"{total - honest_total} rejected; tripwire checks "
+          f"{snap['tripwire_checks']}, mismatches 0, device errors 0, "
+          f"overflows 0; B7c launches {launches}, plain-version calls {plain}",
+          flush=True)
+    # the validator's dispatches at once, in rounds: every buffer equal to
+    # a lone dispatch's, whose failures are the host oracle's
+    v = pm.validator
+    rows = []
+    for batch, honest in flushes:
+        checks = [ShareCheck(s.header, tgt.difficulty_to_target(s.difficulty),
+                             "ethash", block) for s in batch]
+        alone = v._device_buffer("ethash", checks, v.k)
+        n = int(alone[2 * v.k])
+        check(n == honest.count(False) and alone[:n].tolist()
+              == [i for i, ok in enumerate(honest) if not ok],
+              "a lone dispatch's failures != the host oracle's")
+        rows.append((checks, alone))
+    # one buffer against the plain version on the card
+    cache_d = et.source_tensor(cache, dev)
+    checks = rows[0][0]
+    hh0, nn0 = ec.share_rows(hh[:1024], nonces[:1024])
+    limbs0 = np.stack([tgt.target_to_limbs(c.target) for c in checks])
+    plain_buf = et.verify_step(
+        full_size, cache_d, torch.from_numpy(hh0.astype(np.int64)).to(dev),
+        torch.from_numpy(nonces[:1024].astype(np.int64)).to(dev),
+        torch.from_numpy(limbs0.astype(np.int64)).to(dev), 1024, v.k)
+    check(plain_buf.cpu().numpy().view(np.uint32).tolist()
+          == rows[0][1].tolist(), "the first flush's B7c buffer != the plain "
+          "version's")
+    rounds = 2
+    for r in range(rounds):
+        futures = [dispatch_executor().submit(v._device_buffer, "ethash",
+                                              checks, v.k)
+                   for checks, _ in rows]
+        for i, (f, (_, alone)) in enumerate(zip(futures, rows)):
+            check(f.result().tolist() == alone.tolist(),
+                  f"concurrent dispatch {i}, round {r}: != the lone one")
+    print(f"   {rounds} rounds of {len(rows)} ethash dispatches at once on "
+          f"one validator (its dispatch executor's threads, one stream): "
+          f"every buffer = a lone dispatch's, whose failures are the host "
+          f"oracle's; the first flush's = the plain version's", flush=True)
+    del pm
+    return launches
+
+
+def ethash_phases(dev, card: str, clock_mhz: float, counts) -> list[dict]:
+    """Phases 34-38 (ethash, kernels B7a-B7c). Returns their records."""
+    import torch
+
+    out = ethash_kernel_phases(dev, card, clock_mhz, counts)
+    records, state = out["records"], out["state"]
+    torch.cuda.empty_cache()
+    solo = ethash_solo_phase(dev, card, state["rate"])
+    ledger = ethash_ledger_phase(dev, card, state["cache"])
+    records["ethash_dag"]["launches"] = solo["dag"]
+    records["ethash_dag"]["path"] += (f"; solo ethash across epochs 0, 1 and "
+                                      f"2 (phase 37): {solo['dag']} launches")
+    records["ethash_search_full"]["launches"] = solo["full"]
+    records["ethash_search_full"]["path"] = (
+        f"solo ethash Application (phase 37): {solo['full']} launches of "
+        f"the full tier; " + records["ethash_search_full"]["path"])
+    records["ethash_search_light"]["launches"] = solo["light"]
+    records["ethash_search_light"]["path"] = (
+        f"solo ethash Application before each epoch's DAG (phase 37): "
+        f"{solo['light']} launches; " + records["ethash_search_light"]["path"])
+    records["ethash_verify"]["launches"] = ledger
+    records["ethash_verify"]["path"] = (
+        f"pool ledger on_share_batch, ethash flushes of 1,024 (phase 38): "
+        f"{ledger} launches; " + records["ethash_verify"]["path"])
+    return list(records.values())
+
+
 def main() -> int:
     import torch
 
@@ -4904,6 +5669,8 @@ def main() -> int:
     from otedama_tpu_torch.app import Application
     from otedama_tpu_torch.config.schema import AppConfig
     from otedama_tpu_torch.kernels import cuda_build
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
     from otedama_tpu_torch.kernels import scrypt_cuda as scc
     from otedama_tpu_torch.kernels import sha256_cuda as sc
     from otedama_tpu_torch.kernels import sha256_torch as st
@@ -4969,15 +5736,20 @@ def main() -> int:
     # B6's counting build (phase 33's bound) compiles at a low priority
     # behind the phases that follow; two of its twelve builds take minutes
     counting = BACKGROUND.submit(xc.chain_instructions)
+    # B7's counting build (phase 36's bound), behind B6's
+    eth_counting = BACKGROUND.submit(ec.instruction_counts)
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(load) for load in (sc.load_library,
                                                  scc.load_library,
-                                                 xc.load_library)]:
+                                                 xc.load_library,
+                                                 ec.load_library,
+                                                 eth.load_generator)]:
             f.result()
     print(f"   kernels built and loaded in {time.monotonic() - t0:.1f} s",
           flush=True)
-    for info in (sc.build_info, scc.build_info, xc.build_info):
+    for info in (sc.build_info, scc.build_info, xc.build_info, ec.build_info,
+                 eth.generator_info):
         print(f"   {info['library']}: nvcc {info.get('seconds', 0.0):.1f} s",
               flush=True)
     # B2's work is straight-line code (its loops are the bulk copy's wait
@@ -4991,6 +5763,7 @@ def main() -> int:
         for line in cuda_build.kernel_report(info, kernel, loop):
             print(f"   {line}", flush=True)
     b6_resources(dev)
+    ethash_resources(dev)
 
     # -- 2. known answer: the genesis block -----------------------------------
     phase("2 genesis known answer")
@@ -5277,6 +6050,7 @@ def main() -> int:
                           f"28): {durable['b2']}")
     b2_record["launches"] += durable["b2"]
     kernels += x11_phases(dev, card, clock_mhz, counting.result())
+    kernels += ethash_phases(dev, card, clock_mhz, eth_counting)
 
     print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s "
           f"since the script started; {card}", flush=True)
@@ -5449,7 +6223,48 @@ def x11_windows() -> int:
     return 0
 
 
+def ethash_only() -> int:
+    """``python3 chip_smoke.py --ethash``: phases 34-38 alone (the
+    libraries the validator loads built first, in parallel; B7's
+    resources as phase 1 prints them), then the B7 kernels' JSON record.
+    Needs one card; ~4 minutes."""
+    import torch
+
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+    from otedama_tpu_torch.kernels import scrypt_cuda as scc
+    from otedama_tpu_torch.kernels import sha256_cuda as sc
+    from otedama_tpu_torch.kernels import x11_cuda as xc
+
+    check(torch.cuda.is_available(), "this run needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    counts = BACKGROUND.submit(ec.instruction_counts)
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        for f in [pool.submit(load) for load in (
+                sc.load_library, scc.load_library, xc.load_library,
+                ec.load_library, eth.load_generator)]:
+            f.result()
+    ethash_resources(dev)
+    records = ethash_phases(dev, card, clock_mhz, counts)
+    print(f"phases 34-38 passed in {time.monotonic() - T0:.1f} s; {card}",
+          flush=True)
+    print(json.dumps({"kernels": records}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ethash"]:
+        try:
+            rc = ethash_only()
+        except Exception:
+            traceback.print_exc()
+            rc = 1
+        BACKGROUND.shutdown(wait=True, cancel_futures=True)
+        sys.stdout.flush()
+        os._exit(rc)
     if sys.argv[1:2] == ["--turns"]:
         os._exit(turns(sys.argv[2], sys.argv[3],
                        *(float(a) for a in sys.argv[4:])))

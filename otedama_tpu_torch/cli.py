@@ -151,8 +151,8 @@ def cmd_status(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="otedama-tpu-torch",
-        description="sha256d or scrypt mining, a stratum pool and a P2P "
-                    "pool on a CUDA card (PyTorch port).",
+        description="sha256d, scrypt, x11 or ethash mining, a stratum pool "
+                    "and a P2P pool on a CUDA card (PyTorch port).",
     )
     parser.add_argument("-c", "--config", default=None, help="config YAML path")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -168,7 +168,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("solo", help="solo-mine against the node at "
                        "pool.chain_rpc_url, else the mock chain")
     p.add_argument("-a", "--algorithm", default=None,
-                   help="sha256d (default) | sha256 | scrypt")
+                   help="sha256d (default) | sha256 | scrypt | x11 | ethash")
     p.add_argument("-b", "--backend", default=None,
                    help="auto (= cuda) | cuda | torch | python")
     p.add_argument("--device", default="cuda", help="torch device")

@@ -82,7 +82,7 @@ def _mini_yaml(text: str) -> dict:
 @dataclasses.dataclass
 class MiningConfig:
     enabled: bool = True
-    algorithm: str = "sha256d"   # sha256d | sha256 | scrypt (litecoin)
+    algorithm: str = "sha256d"   # sha256d | sha256 | scrypt | x11 | ethash
     backend: str = "auto"        # auto (= cuda) | cuda | torch | python
     device: str = "cuda"         # torch device of the backend
     batch_size: int = 1 << 24
@@ -504,7 +504,7 @@ def example_yaml() -> str:
 # otedama-tpu-torch configuration
 mining:
   enabled: true
-  algorithm: sha256d     # sha256d | sha256 | scrypt
+  algorithm: sha256d     # sha256d | sha256 | scrypt | x11 | ethash
   backend: auto          # auto (= cuda) | cuda | torch | python
   device: cuda           # torch device of the backend
   batch_size: 16777216

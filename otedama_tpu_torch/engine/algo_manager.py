@@ -2,7 +2,9 @@
 (counterpart of ``otedama_tpu/engine/algo_manager.py``).
 
 ``"auto"`` means the card: it picks ``cuda`` (for scrypt, its default
-``romix`` tier) and raises when no CUDA device is visible. The plain
+``romix`` tier; for ethash, the epoch-managed backend over card tiers,
+which owns the DAG's lifecycle across epochs) and raises when no CUDA
+device is visible. The plain
 version runs only when a caller asks for it with ``kind="torch"`` (and a
 ``device``).
 """
@@ -118,7 +120,13 @@ class AlgorithmManager:
             raise RuntimeError(
                 "benchmark() blocks on device searches; run it in an executor"
             )
-        backend = self.backend_for(algorithm, kind)
+        extra = {}
+        if algorithm == "ethash":
+            # a benchmark backend is discarded right after timing; the
+            # managed tier would otherwise start a background 1 GiB
+            # epoch-0 DAG build that outlives it
+            extra["full_dataset"] = False
+        backend = self.backend_for(algorithm, kind, **extra)
         jc = synthetic_job_constants()
         if budget_hashes is None:
             if algos.get(algorithm).memory_hard:

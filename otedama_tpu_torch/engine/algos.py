@@ -3,7 +3,7 @@
 
 An entry declares which search backends implement it; asking for an
 unimplemented (algorithm, backend) pair is a loud error. The port carries
-the sha256 family, scrypt and x11. ``planning_hashrate`` is 0.0: the
+the sha256 family, scrypt, x11 and ethash. ``planning_hashrate`` is 0.0: the
 port's rates are measured on the card (``PERF.md``), and no TPU rate
 stands in for one.
 
@@ -12,7 +12,9 @@ with the live network. x11 is not (its ``simd512`` stage is an
 uncertified reconstruction, ``kernels/x11``): it registers
 ``canonical=False``, and the coin alias ``"dash"`` refuses to resolve
 until ``kernels.x11._maybe_certify`` finds a certification artifact whose
-fingerprint matches and calls ``mark_canonical``.
+fingerprint matches and calls ``mark_canonical``. ethash is not either
+(its composition is from recall, with no offline vector): ``etchash``
+refuses the same way until ``kernels.ethash._maybe_certify`` lifts it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ class AlgorithmSpec:
     name: str
     aliases: tuple[str, ...] = ()
     backends: tuple[str, ...] = ()      # implemented search backends
-    memory_hard: bool = False           # scrypt family: V scratch per lane
+    memory_hard: bool = False           # scrypt: V a lane; ethash: the DAG
     chained: int = 1                    # chained hash rounds (x11 = 11)
     # certified bit-compatible with the live network's rules; a chain
     # that is not may be consistent between miner and pool here but would
@@ -54,9 +56,10 @@ _CANONICAL_ALIASES = {"dash": "x11", "etchash": "ethash"}
 
 
 def _load_kernels() -> None:
-    """Import the x11 host tier, whose import runs the certification
-    check (``kernels.x11._maybe_certify``), before a canonical gate is
+    """Import the x11 and ethash host tiers, whose imports run the
+    certification checks (``_maybe_certify``), before a canonical gate is
     read."""
+    import otedama_tpu_torch.kernels.ethash  # noqa: F401
     import otedama_tpu_torch.kernels.x11  # noqa: F401
 
 
@@ -137,5 +140,14 @@ register(AlgorithmSpec(
     # once the chain is certified (canonical=True)
     backends=("cuda", "torch", "python"),
     chained=11,
+    canonical=False,
+))
+register(AlgorithmSpec(
+    name="ethash",
+    # the "etchash" coin alias lives in _CANONICAL_ALIASES, as "dash"
+    # does. Every kind is the epoch-managed backend over tiers of that
+    # kind (runtime.search._BACKENDS)
+    backends=("cuda", "torch", "python"),
+    memory_hard=True,
     canonical=False,
 ))

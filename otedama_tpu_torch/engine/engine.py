@@ -547,8 +547,9 @@ class MiningEngine:
     def planned_batch(self, backend) -> int:
         """The batch size the hot loop will dispatch to ``backend``: the
         configured batch, raised to the backend's ``preferred_batch`` under
-        ``auto_batch``, and clamped to its ``max_batch`` (the scrypt
-        backends cap one search call at four chunks). Warm-swap
+        ``auto_batch``, and clamped to its ``max_batch`` (the slow
+        algorithms' backends — scrypt, x11, ethash — cap one search call,
+        so that a clean job strands seconds of stale work at most). Warm-swap
         precompiles warm exactly this shape."""
         batch_size = self.config.batch_size
         if self.config.auto_batch:

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled at first use with ``nvcc`` for
-``sm_90a`` into ``build/otedama_tpu_torch/`` beside the package, as a
-shared library with a plain C interface that ``ctypes`` loads (seconds
+``sm_90a`` (and ``csrc/*.cc``, host C++, with the same ``nvcc``) into
+``build/otedama_tpu_torch/`` beside the package, as a shared library with a plain C interface that ``ctypes`` loads (seconds
 to build: no PyTorch headers). The library's file name carries a hash of
 the source, the headers it includes and the flags, so an edited source is
 rebuilt and a stale library is never loaded. A missing toolkit or a failed
@@ -24,6 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "otedama_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# host C++ (csrc/*.cc) through the same nvcc, for the host compiler alone
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 
 def nvcc() -> str:
@@ -72,6 +74,13 @@ def build(source: str, headers: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, dict
     ``seconds`` and ``ptxas`` (registers, spills) when it compiled, and
     ``library``, the path."""
     so, info = _compile(source, headers, NVCC_FLAGS, "lib{stem}-{tag}.so")
+    return ctypes.CDLL(str(so)), info
+
+
+def build_host(source: str) -> tuple[ctypes.CDLL, dict]:
+    """Build the host C++ source ``csrc/<source>`` (unless a library of
+    the same content is there) and load it, as ``build`` does."""
+    so, info = _compile(source, (), HOST_FLAGS, "lib{stem}-{tag}.so")
     return ctypes.CDLL(str(so)), info
 
 

@@ -21,12 +21,18 @@ which returns the fixed ``uint32[2k+3]`` winner buffer
   JAX package's chain, ``kernels/x11``): kernel B6 on the card (the
   counterpart of ``X11JaxBackend``), its plain version, and the host
   tier's lane-axis numpy pipeline.
+- ``EthashManagedBackend`` — ethash with its epoch lifecycle, over tiers
+  of one epoch each: ``EthashCudaBackend`` (kernels B7a and B7b: the DAG
+  built and searched on the card, or the light tier on the cache),
+  ``EthashTorchBackend`` (the plain version) and ``EthashNumpyBackend``
+  (the host oracle's lane-axis pass).
 
 A launch whose table overflows (more than k winners — test-easy targets
 only) is bisected: its halves are launched again, on the same backend,
 until each holds at most k winners. The CUDA backend therefore never hands
 a window to the plain version. (The reference rescans an overflowed x11
-chunk with its dense numpy pipeline; the port bisects it with B6 like the
+chunk with its dense numpy pipeline, and an overflowed ethash chunk with
+its dense device pass; the port bisects both with the same kernel like the
 other algorithms.)
 
 Winner nonces use the kernel word convention: ``nonce_word`` is the
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import math
 import struct
@@ -46,6 +53,8 @@ import time
 import numpy as np
 import torch
 
+from otedama_tpu_torch.kernels import ethash as eth
+from otedama_tpu_torch.kernels import ethash_cuda, ethash_torch
 from otedama_tpu_torch.kernels import scrypt_cuda as scc
 from otedama_tpu_torch.kernels import scrypt_torch
 from otedama_tpu_torch.kernels import sha256_cuda as sc
@@ -621,6 +630,27 @@ class ScryptPythonBackend:
 X11_CUDA_BATCH = 3 << 23
 
 
+# lanes per ethash launch on the card's full tier (the engine groups three
+# launches before one read-back): B7b full reads 8 KiB of DAG pages a hash,
+# ~0.31 s a launch on an H100 (chip_smoke.py phase 36), so a group takes
+# ~0.93 s, longer than the host re-check of its winners (one
+# hashimoto_light_batch pass, ~0.4 s), which then hides behind one group
+ETHASH_CUDA_BATCH = 1 << 26
+# lanes of each window a call searches on the light tier (before the
+# epoch's DAG is resident): B7b light derives 128 dataset items a hash,
+# ~1.5 MH/s on an H100, so a group of three such windows takes ~0.5 s
+ETHASH_LIGHT_LANES = 1 << 18
+# EthashManagedBackend's epoch lifecycle: the next epoch is prefetched once
+# a job comes within ETHASH_PREFETCH_BLOCKS of its boundary; at most
+# ETHASH_MAX_FULL_TIERS DAGs (1 GiB and more each, plus one build in
+# flight) and ETHASH_MAX_LIGHT_TIERS caches stay resident; a failed DAG
+# build is retried after ETHASH_BUILD_RETRY_S seconds
+ETHASH_PREFETCH_BLOCKS = 64
+ETHASH_MAX_FULL_TIERS = 2
+ETHASH_MAX_LIGHT_TIERS = 3
+ETHASH_BUILD_RETRY_S = 300.0
+
+
 def _offsets_to_nonces(bufs: np.ndarray, windows, k: int) -> np.ndarray:
     """B6 and its plain version put lane offsets in the winner slots; the
     shared host side reads nonce words there."""
@@ -785,6 +815,516 @@ def _x11_chunk_search(jc: JobConstants, base: int, count: int,
     return SearchResult(winners, count, best)
 
 
+# -- ethash ------------------------------------------------------------------------
+
+class _EthashEpoch:
+    """One ethash epoch's host side, shared by its tiers: the sizing (real
+    chain rules from ``block_number``, or an explicit miniature epoch of
+    ``cache_rows`` and ``full_pages``), the host cache (built here unless
+    a prebuilt one is given: the compiled generator for the card, the
+    python chain for ``cache_device="cpu"``), and the winners' host
+    re-check (``hashimoto_light_batch``, one pass a group)."""
+
+    algorithm = "ethash"
+
+    def _init_epoch(self, *, block_number=None, cache_rows=None,
+                    full_pages=None, cache=None, cache_device="cuda") -> None:
+        if block_number is not None:
+            cache_bytes = eth.cache_size(block_number)
+            self.full_size = eth.dataset_size(block_number)
+            seed = eth.seed_hash(block_number)
+        elif cache_rows is not None and full_pages is not None:
+            # explicit miniature epoch (tests / self-consistency drills)
+            cache_bytes = cache_rows * eth.HASH_BYTES
+            self.full_size = full_pages * eth.MIX_BYTES
+            seed = eth.seed_hash(0)
+        else:
+            # shares mined against a silently toy-sized DAG would be
+            # invalid for any real verifier — make the choice explicit
+            raise ValueError(
+                "ethash needs block_number= for a real epoch, or BOTH "
+                "cache_rows= and full_pages= for an explicit test epoch")
+        if cache is not None:
+            if cache.shape[0] * eth.HASH_BYTES != cache_bytes:
+                raise ValueError(
+                    f"prebuilt cache has {cache.shape[0]} rows, epoch "
+                    f"sizing wants {cache_bytes // eth.HASH_BYTES}")
+            self.cache = cache
+        else:
+            self.cache = eth.make_cache(cache_bytes, seed, device=cache_device)
+
+    def _digests(self, jc: JobConstants, nonce_words: list[int]) -> list[bytes]:
+        """The framework digests (the result byte-reversed, so that they
+        compare as little-endian integers) of a group's winners, in one
+        pass of the host oracle."""
+        _, res = eth.hashimoto_light_batch(
+            self.full_size, self.cache, eth.header_hash(jc.header76),
+            nonce_words)
+        return [r[::-1].tobytes() for r in res]
+
+
+class _EthashTier(_EthashEpoch, _BufferBackend):
+    """An epoch's search through launches of ``hashimoto_winners_device``'s
+    contract (B7b or its plain version): the 76-byte prefix hashed to the
+    32-byte header hash (keccak-256), each nonce word ``(base + offset)
+    mod 2^32`` zero-extended to ethash's 64-bit nonce, winners as lane
+    offsets, each re-derived through the host oracle and dropped, logged
+    as corruption, if it fails there."""
+
+    def _launch_eth(self, jc, windows, k) -> np.ndarray:
+        raise NotImplementedError
+
+    def _launch_all(self, jc, windows, k):
+        return _offsets_to_nonces(self._launch_eth(jc, windows, k), windows, k)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return self.search_group(jc, [(base, count)])[0]
+
+    def search_group(
+        self, jc: JobConstants, batches: list[tuple[int, int]]
+    ) -> list[SearchResult]:
+        return self._search_windows(jc, batches)
+
+
+class EthashCudaBackend(_CardBackend, _EthashTier):
+    """One epoch of ethash on the card (the counterpart of
+    ``EthashLightBackend(device=True)``): the epoch cache on the card and,
+    with ``full_dataset``, the page-major DAG that B7a builds there at
+    construction on a stream of its own (1 GiB and more an epoch). The
+    light tier searches with B7b light (each page derived from the
+    cache), the full tier with B7b full (each page read from the DAG).
+    Launches go to the backend's own stream under its enqueue lock; a
+    caller that already holds the epoch's cache on the card passes it
+    (``cache_dev``) and no second copy is made. ``close()`` frees the
+    DAG and the cache once the launches queued before it have finished."""
+
+    preferred_batch = ETHASH_CUDA_BATCH
+    max_batch = ETHASH_CUDA_BATCH
+
+    def __init__(self, device="cuda", winner_depth: int | None = None, *,
+                 block_number: int | None = None,
+                 cache_rows: int | None = None, full_pages: int | None = None,
+                 cache: np.ndarray | None = None,
+                 cache_dev: torch.Tensor | None = None,
+                 full_dataset: bool = False):
+        _BufferBackend.__init__(self, device, winner_depth)
+        self._init_card("EthashCudaBackend")
+        ethash_cuda.load_library()
+        self._init_epoch(block_number=block_number, cache_rows=cache_rows,
+                         full_pages=full_pages, cache=cache)
+        self.full = full_dataset
+        self.name = "ethash-cuda-full" if full_dataset else "ethash-cuda-light"
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self.cache_dev = (cache_dev if cache_dev is not None
+                              else ethash_cuda.cache_tensor(self.cache,
+                                                            self.device))
+            self.stream.synchronize()
+        # the cache is read on this backend's stream: its memory must not
+        # be reused while a search queued there may still read it
+        self.cache_dev.record_stream(self.stream)
+        self.dag: torch.Tensor | None = None
+        if full_dataset:
+            build = torch.cuda.Stream(device=self.device)
+            with torch.cuda.device(self.device), torch.cuda.stream(build):
+                dag = ethash_cuda.build_dag(self.cache_dev, self.full_size,
+                                            stream=build)
+            build.synchronize()
+            dag.record_stream(self.stream)
+            self.dag = dag
+            # the full tier never reads the cache again
+            self.cache_dev = None
+
+    def _release(self) -> None:
+        self.dag = None
+        self.cache_dev = None
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        t0 = time.monotonic()
+        ethash_cuda.load_library()
+        return time.monotonic() - t0 + warmup_backend(self, jc, count)
+
+    def _launch_eth(self, jc, windows, k):
+        hh = eth.header_hash(jc.header76)
+
+        def launch(base, count, out):
+            src = self.dag if self.full else self.cache_dev
+            if src is None:
+                raise BackendClosedError(f"{self.name} is closed")
+            ethash_cuda.ethash_search(self.full_size, src, hh, base,
+                                      count - 1, jc.limbs, batch=count, k=k,
+                                      full=self.full, stream=self.stream,
+                                      out=out)
+
+        return _launch_rows(self.device, self.stream, windows, k, launch,
+                            self._enqueue())
+
+
+class EthashTorchBackend(_EthashTier):
+    """One epoch of ethash in the plain PyTorch version on a given device
+    (the tests' CPU path): the cache as int64 words there and, with
+    ``full_dataset``, the DAG that ``ethash_torch.build_dataset`` builds.
+    Without a prebuilt cache, the CPU builds it with the python chain."""
+
+    def __init__(self, device="cpu", winner_depth: int | None = None, *,
+                 block_number: int | None = None,
+                 cache_rows: int | None = None, full_pages: int | None = None,
+                 cache: np.ndarray | None = None, full_dataset: bool = False,
+                 chunk: int = 1 << 6):
+        _BufferBackend.__init__(self, device, winner_depth)
+        self._init_epoch(block_number=block_number, cache_rows=cache_rows,
+                         full_pages=full_pages, cache=cache,
+                         cache_device=self.device.type)
+        self.full = full_dataset
+        self.name = "ethash-torch-full" if full_dataset else "ethash-torch-light"
+        self.chunk = int(chunk)
+        self.max_batch = 4 * self.chunk
+        self.source = ethash_torch.source_tensor(self.cache, self.device)
+        if full_dataset:
+            self.source = ethash_torch.build_dataset(
+                self.source, self.full_size).reshape(-1, 32)
+
+    def _launch_eth(self, jc, windows, k):
+        hh = eth.header_hash(jc.header76)
+        bufs = [ethash_torch.winner_step(self.full_size, self.source, hh, base,
+                                         count, jc.limbs, count, k,
+                                         full=self.full)
+                for base, count in windows]
+        return torch.stack(bufs).cpu().numpy().view(np.uint32)
+
+
+class EthashNumpyBackend(_EthashEpoch):
+    """One epoch of ethash through the host oracle's lane-axis pass
+    (``hashimoto_light_batch``), dense, ``chunk`` nonces at a time: the
+    zero-dependency oracle of the ethash backends (the reference's
+    ``EthashLightBackend(device=False)``, which ran ``hashimoto_light``
+    a nonce at a time)."""
+
+    name = "ethash-numpy"
+
+    def __init__(self, *, block_number: int | None = None,
+                 cache_rows: int | None = None, full_pages: int | None = None,
+                 cache: np.ndarray | None = None, chunk: int = 1 << 8,
+                 cache_device: str = "cuda"):
+        self._init_epoch(block_number=block_number, cache_rows=cache_rows,
+                         full_pages=full_pages, cache=cache,
+                         cache_device=cache_device)
+        self.chunk = int(chunk)
+        self.max_batch = 4 * self.chunk
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        return warmup_backend(self, jc, 1)
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        hh = eth.header_hash(jc.header76)
+        winners: list[Winner] = []
+        best = _M32
+        for done in range(0, count, self.chunk):
+            n = min(self.chunk, count - done)
+            nonces = (base + done + np.arange(n, dtype=np.uint64)) & _M32
+            _, res = eth.hashimoto_light_batch(self.full_size, self.cache, hh,
+                                               nonces)
+            # framework convention: digests compare as LE integers, so the
+            # BE ethash result is byte-reversed once here
+            digests = res[:, ::-1]
+            hi = np.ascontiguousarray(digests[:, 28:32]).view("<u4").reshape(n)
+            best = min(best, int(hi.min()))
+            top_limb = (jc.target >> 224) & _M32
+            for idx in np.nonzero(hi <= top_limb)[0].tolist():
+                digest = digests[idx].tobytes()
+                if tgt.hash_meets_target(digest, jc.target):
+                    winners.append(Winner(int(nonces[idx]), digest))
+        return SearchResult(winners, count, best)
+
+
+class EthashManagedBackend:
+    """ethash with its epoch lifecycle (the counterpart of the reference's
+    ``EthashManagedBackend``): per-epoch tiers of one kind (``cuda``:
+    ``EthashCudaBackend``; ``torch``: ``EthashTorchBackend`` on
+    ``device``; ``python``: ``EthashNumpyBackend``), following the JOBS
+    (``JobConstants.block_number``) across epoch boundaries without ever
+    dropping the search loop:
+
+    - on an epoch switch the new epoch's CACHE builds synchronously (the
+      compiled generator: under a second a real epoch) and searches
+      continue at once on the light tier (B7b light);
+    - the full page-major DAG builds on a BACKGROUND thread (B7a, on a
+      stream of its own, beside the engine's launches); once resident,
+      searches upgrade to the full tier at a group boundary — light and
+      full are byte-identical by construction, so the upgrade shows only
+      in the rate;
+    - the next epoch is PREFETCHED (cache and DAG) when jobs come within
+      ``ETHASH_PREFETCH_BLOCKS`` of the boundary;
+    - at most ``ETHASH_MAX_FULL_TIERS`` DAGs stay resident (plus one build
+      in flight) and ``ETHASH_MAX_LIGHT_TIERS`` caches; older epochs are
+      evicted, never the live one, and an evicted DAG's memory returns to
+      the allocator once the launches queued on it are done;
+    - a failed DAG build is logged, counted (``build_failures``) and
+      retried after ``ETHASH_BUILD_RETRY_S``, while the light tier keeps
+      searching;
+    - each new epoch's host cache is donated to ``pow_host`` (the share
+      validator's registry; miniature sizings are refused there).
+
+    Where it differs from the reference: a call on the light tier searches
+    only the first ``ETHASH_LIGHT_LANES`` of each window (its result's
+    ``hashes`` say so): the light tier is ~100x slower than the full tier,
+    and a window sized for the full tier would hold a call for tens of
+    seconds; the tiers bisect an overflowed window with the same kernel
+    (the reference rescans densely); ``full_dataset`` defaults to true on
+    the card and false elsewhere."""
+
+    algorithm = "ethash"
+    name = "ethash-managed"
+
+    def __init__(self, kind: str = "cuda", device=None,
+                 winner_depth: int | None = None,
+                 full_dataset: bool | None = None, sizing=None,
+                 chunk: int | None = None):
+        if kind not in ("cuda", "torch", "python"):
+            raise ValueError(f"unknown ethash tier kind {kind!r}")
+        if full_dataset and kind == "python":
+            raise ValueError("the python tier has no DAG (full_dataset)")
+        self.kind = kind
+        self.device = torch.device(device if device is not None else
+                                   "cuda" if kind == "cuda" else "cpu")
+        if kind == "cuda":
+            self.device = _cuda_device(self.device, "EthashManagedBackend")
+            ethash_cuda.load_library()
+        self.winner_depth = winner_depth
+        self.full_dataset = (kind == "cuda") if full_dataset is None \
+            else bool(full_dataset)
+        if kind == "cuda":
+            self.preferred_batch = self.max_batch = ETHASH_CUDA_BATCH
+        else:
+            self.chunk = int(chunk or (1 << 6))
+            self.max_batch = 4 * self.chunk
+        # sizing: epoch -> tier kwargs. Default: the real chain rules;
+        # tests inject miniature epochs
+        self._sizing = sizing or (
+            lambda epoch: {"block_number": epoch * eth.EPOCH_LENGTH})
+        # `_lock` guards the dicts and stats, held for microseconds;
+        # `_tier_build_lock` serializes light-tier construction (a cache
+        # build), never held with `_lock`
+        self._light: dict[int, object] = {}
+        self._full: dict[int, object] = {}
+        self._building: set[int] = set()
+        self._failed: dict[int, float] = {}
+        self._live_epoch: int | None = None
+        self._warned_no_height = False
+        self._closed = False
+        self._lock = threading.Lock()
+        self._tier_build_lock = threading.Lock()
+        self.stats = {"epoch_switches": 0, "full_upgrades": 0,
+                      "light_calls": 0, "full_calls": 0,
+                      "build_failures": 0, "evictions": 0}
+
+    # -- tiers ---------------------------------------------------------------
+
+    def _make_tier(self, epoch: int, full: bool, light=None):
+        kw = dict(self._sizing(epoch))
+        if self.kind == "python":
+            return EthashNumpyBackend(chunk=self.chunk,
+                                      cache_device=self.device.type, **kw)
+        if light is not None:
+            kw["cache"] = light.cache
+        if self.kind == "cuda":
+            if light is not None and light.cache_dev is not None:
+                kw["cache_dev"] = light.cache_dev
+            return EthashCudaBackend(self.device, self.winner_depth,
+                                     full_dataset=full, **kw)
+        return EthashTorchBackend(self.device, self.winner_depth,
+                                  full_dataset=full, chunk=self.chunk, **kw)
+
+    def _evict_locked(self, tiers: dict, cap: int, what: str) -> None:
+        """Drop the oldest epochs past ``cap`` — never the live one."""
+        while len(tiers) > cap:
+            victims = [e for e in tiers if e != self._live_epoch]
+            if not victims:
+                break
+            victim = min(victims)
+            del tiers[victim]
+            self.stats["evictions"] += 1
+            log.info("ethash: evicted epoch %d %s", victim, what)
+
+    def _light_tier(self, epoch: int):
+        with self._lock:
+            tier = self._light.get(epoch)
+        if tier is not None:
+            return tier
+        with self._tier_build_lock:
+            with self._lock:
+                tier = self._light.get(epoch)
+            if tier is not None:
+                return tier
+            tier = self._make_tier(epoch, False)
+            with self._lock:
+                closed = self._closed
+                if not closed:
+                    self._light[epoch] = tier
+                    self.stats["epoch_switches"] += 1
+                    self._evict_locked(self._light, ETHASH_MAX_LIGHT_TIERS,
+                                       "light cache")
+            if closed:
+                _close_tier(tier)
+                raise BackendClosedError(f"{self.name} is closed")
+            try:
+                pow_host.register_epoch_cache(epoch, tier.full_size,
+                                              tier.cache)
+            except Exception:  # a donation is an optimization, never fatal
+                log.debug("epoch cache donation failed", exc_info=True)
+            log.info("ethash: epoch %d cache ready (light tier live)", epoch)
+        return tier
+
+    def _build_epoch(self, epoch: int) -> None:
+        """Background: the light tier first (so that a boundary crossing
+        never stalls a search), then the full DAG when enabled."""
+        try:
+            light = self._light_tier(epoch)
+            if not self.full_dataset:
+                with self._lock:
+                    self._building.discard(epoch)
+                return
+            t0 = time.monotonic()
+            tier = self._make_tier(epoch, True, light)
+        except Exception:
+            log.exception("ethash: epoch %d build failed (light tier "
+                          "continues; retry in %.0fs)", epoch,
+                          ETHASH_BUILD_RETRY_S)
+            with self._lock:
+                self.stats["build_failures"] += 1
+                self._failed[epoch] = time.monotonic()
+                self._building.discard(epoch)
+            return
+        with self._lock:
+            closed = self._closed
+            if not closed:
+                # registered in the section that clears `building`: a gap
+                # would let a search start a duplicate build
+                self._full[epoch] = tier
+                self._failed.pop(epoch, None)
+                self._evict_locked(self._full, ETHASH_MAX_FULL_TIERS,
+                                   "full DAG")
+                self.stats["full_upgrades"] += 1
+            self._building.discard(epoch)
+            resident = len(self._full)
+        if closed:
+            _close_tier(tier)
+            return
+        log.info("ethash: epoch %d full DAG resident in %.2fs (%d MiB; %d "
+                 "epochs resident)", epoch, time.monotonic() - t0,
+                 tier.full_size >> 20, resident)
+
+    def _ensure_epoch_building(self, epoch: int) -> None:
+        with self._lock:
+            if epoch in self._building or self._closed:
+                return
+            light_done = epoch in self._light
+            full_done = epoch in self._full or not self.full_dataset
+            if light_done and full_done:
+                return
+            failed_at = self._failed.get(epoch)
+            if (failed_at is not None and time.monotonic() - failed_at
+                    < ETHASH_BUILD_RETRY_S):
+                return
+            self._building.add(epoch)
+        threading.Thread(target=self._build_epoch, args=(epoch,),
+                         name=f"ethash-epoch{epoch}", daemon=True).start()
+
+    # -- search --------------------------------------------------------------
+
+    def precompile(self, jc: JobConstants | None = None,
+                   count: int | None = None) -> float:
+        """Build and load the kernel library and the cache generator; with
+        a job, also that job's epoch's light tier and one search of it.
+        Without one no epoch is guessed (a synthetic job is epoch 0)."""
+        t0 = time.monotonic()
+        if self.kind == "cuda":
+            ethash_cuda.load_library()
+            eth.load_generator()
+        if jc is not None:
+            self.search(jc, 0, 1)
+        return time.monotonic() - t0
+
+    def _tier_for(self, jc: JobConstants):
+        """The tier this call searches on, and whether it is the full one."""
+        if self._closed:
+            raise BackendClosedError(f"{self.name} is closed")
+        if jc.block_number <= 0 and not self._warned_no_height:
+            # a height-less feed (stratum V1) leaves block_number at 0: the
+            # EPOCH-0 DAG against a chain hundreds of epochs along would make
+            # every share invalid; warn loudly
+            self._warned_no_height = True
+            log.warning(
+                "ethash: job carries block_number<=0 — mining the EPOCH-0 "
+                "DAG. If this job came from a height-less feed (stratum "
+                "V1), every share will be invalid on a real chain; wire the "
+                "template height into Job.block_number.")
+        epoch = jc.block_number // eth.EPOCH_LENGTH
+        with self._lock:
+            self._live_epoch = epoch
+            tier = self._full.get(epoch)
+        full = tier is not None
+        if not full:
+            self._ensure_epoch_building(epoch)
+            # the CURRENT epoch's light tier builds synchronously when
+            # missing: a search cannot proceed without it
+            tier = self._light_tier(epoch)
+        with self._lock:
+            self.stats["full_calls" if full else "light_calls"] += 1
+        nxt = (jc.block_number + ETHASH_PREFETCH_BLOCKS) // eth.EPOCH_LENGTH
+        if nxt != epoch:
+            self._ensure_epoch_building(nxt)
+        return tier, full
+
+    @staticmethod
+    def _cut(full: bool, batches):
+        if full:
+            return list(batches)
+        return [(b, min(c, ETHASH_LIGHT_LANES)) for b, c in batches]
+
+    def search_group(
+        self, jc: JobConstants, batches: list[tuple[int, int]]
+    ) -> list[SearchResult]:
+        tier, full = self._tier_for(jc)
+        windows = self._cut(full, batches)
+        if hasattr(tier, "search_group"):
+            return tier.search_group(jc, windows)
+        return [tier.search(jc, b, c) for b, c in windows]
+
+    def search(self, jc: JobConstants, base: int, count: int) -> SearchResult:
+        return self.search_group(jc, [(base, count)])[0]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                **self.stats,
+                "full_epochs": sorted(self._full),
+                "light_epochs": sorted(self._light),
+                "building": sorted(self._building),
+                "failed_epochs": sorted(self._failed),
+                "live_epoch": self._live_epoch,
+            }
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Refuse further calls and close every tier (a card tier frees
+        its DAG and cache once its stream is idle). A DAG build in flight
+        closes its tier when it lands."""
+        with self._lock:
+            self._closed = True
+            tiers = list(self._full.values()) + list(self._light.values())
+            self._full.clear()
+            self._light.clear()
+        for tier in tiers:
+            _close_tier(tier, timeout)
+
+
+def _close_tier(tier, timeout: float = 30.0) -> None:
+    close = getattr(tier, "close", None)
+    if close is not None:
+        close(timeout)
+
+
 _BACKENDS = {
     "sha256d": {"cuda": CudaBackend, "torch": TorchBackend,
                 "python": PythonBackend},
@@ -792,15 +1332,19 @@ _BACKENDS = {
                "python": ScryptPythonBackend},
     "x11": {"cuda": X11CudaBackend, "torch": X11TorchBackend,
             "python": X11NumpyBackend},
+    # every kind is the epoch-managed backend over tiers of that kind
+    "ethash": {kind: functools.partial(EthashManagedBackend, kind)
+               for kind in ("cuda", "torch", "python")},
 }
 _BACKENDS["sha256"] = _BACKENDS["sha256d"]
 
 
 def make_backend(kind: str, algorithm: str = "sha256d", **kwargs):
     """``kind`` is ``cuda``, ``torch`` or ``python``; ``algorithm`` a
-    canonical name (``sha256d``, ``sha256``, ``scrypt``, ``x11``); kwargs go
-    to the backend (``device``, ``winner_depth``, ``chunk``, and ``tier``
-    for scrypt on the card)."""
+    canonical name (``sha256d``, ``sha256``, ``scrypt``, ``x11``,
+    ``ethash``); kwargs go to the backend (``device``, ``winner_depth``,
+    ``chunk``, ``tier`` for scrypt on the card, the lifecycle's knobs for
+    ethash, whose every kind is ``EthashManagedBackend``)."""
     cls = _BACKENDS.get(algorithm, {}).get(kind)
     if cls is None:
         raise ValueError(f"no backend {kind!r} for algorithm {algorithm!r}")

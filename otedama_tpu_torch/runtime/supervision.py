@@ -300,8 +300,10 @@ def expected_probe_winners(
     return out
 
 
-# algorithms whose host oracle (pow_digest) the port carries. Any other
-# algorithm's probe is verified structurally.
+# algorithms whose host oracle (pow_digest) holds for ANY backend
+# configuration. Any other algorithm's probe is verified structurally:
+# ethash's backends pin an epoch context (possibly a miniature test epoch)
+# that the height-0 oracle cannot reproduce, as in the reference.
 _ORACLE_ALGORITHMS = frozenset({"sha256d", "sha256", "scrypt", "x11"})
 
 

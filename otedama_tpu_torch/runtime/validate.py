@@ -21,8 +21,10 @@ The device tiers: the sha256d family on the verify kernel B2
 kernel B5 and the verify epilogue (``scrypt_cuda.scrypt_verify``), x11 on
 B6's verify kernel (``x11_cuda.x11_verify``) or, with ``x11_chain =
 "numpy"``, on the host tier's lane-axis pipeline (``x11_verify_batch``,
-the reference's ``"numpy"`` tier). ethash validates on the host until its
-slice (ROADMAP A10) lands.
+the reference's ``"numpy"`` tier); ethash on kernel B7c
+(``ethash_cuda.ethash_verify``), each group one epoch: the epoch's cache
+comes from ``pow_host``'s registry and stays on the validator's device
+(two epochs at most).
 
 Safety rails, in the same shape as the device SEARCH path's:
 
@@ -71,6 +73,8 @@ import time
 import numpy as np
 import torch
 
+from otedama_tpu_torch.kernels import ethash as eth
+from otedama_tpu_torch.kernels import ethash_cuda
 from otedama_tpu_torch.kernels import scrypt_cuda as scc
 from otedama_tpu_torch.kernels import sha256_cuda as sc
 from otedama_tpu_torch.kernels import sha256_torch
@@ -107,12 +111,18 @@ def dispatch_executor() -> concurrent.futures.ThreadPoolExecutor:
 
 # algorithms with a device verify tier. Deliberately NARROW: "sha256"
 # (single hash) has no device twin and must not fall into the sha256d
-# kernel; "dash" (x11's live-network alias) is refused by the host oracle
-# while x11 is uncertified; ethash joins with its slice (ROADMAP A10)
+# kernel; "dash" and "etchash" (the live-network aliases) are refused by
+# the host oracle while x11 and ethash are uncertified
 _SHA256D_ALGOS = frozenset({"sha256d", "sha256double", "bitcoin"})
 _SCRYPT_ALGOS = frozenset({"scrypt", "litecoin"})
 _X11_ALGOS = frozenset({"x11"})
-_DEVICE_ALGOS = _SHA256D_ALGOS | _SCRYPT_ALGOS | _X11_ALGOS
+_ETHASH_ALGOS = frozenset({"ethash"})
+_DEVICE_ALGOS = _SHA256D_ALGOS | _SCRYPT_ALGOS | _X11_ALGOS | _ETHASH_ALGOS
+# algorithms whose host digests go through one lane-axis pass for many
+# shares (``pow_host.pow_digests``), not a call a share
+_BATCH_HOST_ALGOS = _X11_ALGOS | _ETHASH_ALGOS
+# epoch caches a validator keeps on its device
+ETHASH_RESIDENT_EPOCHS = 2
 X11_CHAINS = ("cuda", "numpy")
 
 
@@ -128,13 +138,21 @@ class ShareCheck:
     block_number: int = 0
 
 
+def _epoch_of(check: ShareCheck) -> int:
+    """The ethash epoch a share's height picks (0 for other algorithms)."""
+    if (check.algorithm or "").lower() in ("ethash", "etchash"):
+        return check.block_number // eth.EPOCH_LENGTH
+    return 0
+
+
 class _Staging:
     """One device dispatch's buffers, owned by one dispatch at a time: the
-    batch's header words and target limbs in pinned host memory and on
-    the card (words then limbs in one block, so one asynchronous copy
-    moves both, and the limbs start 16-byte aligned), the failure buffer
-    on the card and its pinned read-back, and the event that marks the
-    read-back done. Every buffer persists and only grows."""
+    batch's input rows (header words and target limbs; for ethash header
+    hashes, nonces and limbs) in pinned host memory and on the card (one
+    after the other in one block, so one asynchronous copy moves them all,
+    each part starting 16-byte aligned), the failure buffer on the card
+    and its pinned read-back, and the event that marks the read-back done.
+    Every buffer persists and only grows."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -143,12 +161,14 @@ class _Staging:
         self._card_out = self._host_out = None
         self._done = torch.cuda.Event()
 
-    def inputs(self, words: np.ndarray, limbs: np.ndarray):
-        """Stage ``words`` ``[n, 20]`` and ``limbs`` ``[n, 8]`` (uint32) and
-        copy them to the card on the current stream; returns the card's
-        ``[n, 20]`` and ``[n, 8]`` int32 views."""
-        n = len(words)
-        need = (20 + 8) * n
+    def inputs(self, *parts: np.ndarray):
+        """Stage ``parts`` (uint32 ``[n, w]`` arrays, e.g. words ``[n, 20]``
+        and limbs ``[n, 8]``) and copy them to the card on the current
+        stream; returns the card's int32 views of the same shapes."""
+        starts, need = [], 0
+        for part in parts:
+            starts.append(need)
+            need += -(-part.size // 4) * 4      # each part 16-byte aligned
         if self._host_in is None or self._host_in.numel() < need:
             size = 1 << max(12, (need - 1).bit_length())
             self._host_in = self._card_in = None    # free the old ones first
@@ -157,11 +177,11 @@ class _Staging:
             self._host_np = self._host_in.numpy()
             self._card_in = torch.empty(size, dtype=torch.int32,
                                         device=self.device)
-        self._host_np[:20 * n] = words.view(np.int32).reshape(-1)
-        self._host_np[20 * n:need] = limbs.view(np.int32).reshape(-1)
+        for at, part in zip(starts, parts):
+            self._host_np[at:at + part.size] = part.view(np.int32).reshape(-1)
         self._card_in[:need].copy_(self._host_in[:need], non_blocking=True)
-        return (self._card_in[:20 * n].view(n, 20),
-                self._card_in[20 * n:need].view(n, 8))
+        return tuple(self._card_in[at:at + part.size].view(part.shape)
+                     for at, part in zip(starts, parts))
 
     def output(self, k: int) -> torch.Tensor:
         """The card's ``uint32[2k+3]`` failure buffer for this dispatch."""
@@ -204,7 +224,15 @@ class ValidationBackend:
     scrypt launches together while they are enqueued (the wait for the
     read-back is outside it), as ``ScryptCudaBackend`` does. An x11
     dispatch's stages pass their values through a state buffer of the
-    dispatch's own, so x11 dispatches interleave on the stream freely.
+    dispatch's own, so x11 dispatches interleave on the stream freely, and
+    so do ethash dispatches (B7c reads the epoch's cache and writes only
+    the dispatch's own buffer).
+
+    ethash shares are grouped by epoch (``block_number``), each group one
+    dispatch against that epoch's cache, which comes from ``pow_host``'s
+    registry (``_epoch_cache``: donated by the miner's backend, or built
+    by the compiled generator) and is kept on the validator's device, at
+    most ``ETHASH_RESIDENT_EPOCHS`` of them.
     """
 
     def __init__(self, *, min_batch: int = VALIDATE_MIN_BATCH,
@@ -241,6 +269,7 @@ class ValidationBackend:
                 if x11_chain == "cuda":
                     x11_cuda.load_library()
                     x11_cuda.device_tables(self.device)
+                ethash_cuda.load_library()
                 self.stream = torch.cuda.Stream(device=self.device)
             elif self.device.type != "cpu":
                 raise ValueError(f"ValidationBackend runs on cuda or cpu, "
@@ -249,6 +278,8 @@ class ValidationBackend:
         self._scrypt_scratch: tuple[torch.Tensor, torch.Tensor] | None = None
         # the card dispatches' staging buffers that no dispatch holds
         self._staging: list[_Staging] = []
+        # epoch -> (full_size, the epoch cache on the validator's device)
+        self._eth_caches: dict[int, tuple[int, torch.Tensor]] = {}
         self._enqueue_lock = threading.Lock()
         # deterministic tripwire sampling: chaos runs replay exactly
         self._rng = random.Random(seed)
@@ -297,14 +328,19 @@ class ValidationBackend:
 
     async def _host_verdicts(self, checks: list[ShareCheck]) -> list[bool]:
         """Exact host verdicts, CONCURRENT on the validation executor: the
-        x11 shares in one call (the host chain costs a pass whatever the
-        count), any other share a call of its own."""
+        x11 shares in one call, the ethash shares of an epoch in one call
+        (their host passes cost about the same whatever the count), any
+        other share a call of its own."""
         loop = asyncio.get_running_loop()
         pool = pow_host.validation_executor()
-        x11 = [i for i, c in enumerate(checks)
-               if (c.algorithm or "").lower() in _X11_ALGOS]
-        units = [x11] if x11 else []
-        units += [[i] for i in sorted(set(range(len(checks))) - set(x11))]
+        batched: dict[tuple[str, int], list[int]] = {}
+        for i, c in enumerate(checks):
+            algo = (c.algorithm or "").lower()
+            if algo in _BATCH_HOST_ALGOS:
+                batched.setdefault((algo, _epoch_of(c)), []).append(i)
+        units = list(batched.values())
+        done = {i for unit in units for i in unit}
+        units += [[i] for i in range(len(checks)) if i not in done]
         parts = await asyncio.gather(*(
             loop.run_in_executor(pool, self._host_verdicts_of,
                                  [checks[i] for i in unit])
@@ -357,6 +393,8 @@ class ValidationBackend:
         x11 = algorithm in _X11_ALGOS
         if x11 and self.x11_chain == "numpy":
             return self._x11_numpy_buffer(checks, k)
+        if algorithm in _ETHASH_ALGOS:
+            return self._ethash_buffer(checks, k)
         words = sha256_torch.headers_to_words([c.header for c in checks])
         limbs = np.stack([tgt.target_to_limbs(c.target) for c in checks])
         scrypt = algorithm in _SCRYPT_ALGOS
@@ -387,6 +425,54 @@ class ValidationBackend:
             else:
                 buf = sc.sha256d_verify(w, t, n, k=k, stream=self.stream,
                                         out=slot.output(k))
+            slot.read_back(buf)
+        result = slot.result(sc.winner_buffer_words(k))
+        # a dispatch that raised keeps its slot: its copies may still run
+        with self._lock:
+            self._staging.append(slot)
+        return result
+
+    def _ethash_cache(self, epoch: int) -> tuple[int, torch.Tensor]:
+        """(full_size, cache on the validator's device) of an epoch: from
+        ``pow_host``'s registry, copied to the device once; the oldest of
+        more than ``ETHASH_RESIDENT_EPOCHS`` is dropped."""
+        with self._lock:
+            ent = self._eth_caches.get(epoch)
+        if ent is not None:
+            return ent
+        full_size, cache = pow_host._epoch_cache(epoch)
+        # on the card: allocated on (and so freed after) the dispatches' stream
+        with (torch.cuda.stream(self.stream) if self.stream is not None
+              else contextlib.nullcontext()):
+            dev = ethash_cuda.cache_tensor(cache, self.device)
+        with self._lock:
+            ent = self._eth_caches.setdefault(epoch, (full_size, dev))
+            while len(self._eth_caches) > ETHASH_RESIDENT_EPOCHS:
+                del self._eth_caches[min(self._eth_caches)]
+        return ent
+
+    def _ethash_buffer(self, checks: list[ShareCheck], k: int) -> np.ndarray:
+        """One ethash dispatch (one epoch): each share's header hash and
+        nonce (``ethash.share_fields``, on the host in one lane-axis pass)
+        through B7c against its target. Returns the ``uint32[2k+3]``
+        failure buffer."""
+        n = len(checks)
+        full_size, cache = self._ethash_cache(_epoch_of(checks[0]))
+        hh, nonces = ethash_cuda.share_rows(
+            *eth.share_fields([c.header for c in checks]))
+        limbs = np.stack([tgt.target_to_limbs(c.target) for c in checks])
+        if self.device.type != "cuda":
+            parts = [torch.from_numpy(x.view(np.int32))
+                     for x in (hh, nonces, limbs)]
+            return ethash_cuda.ethash_verify(full_size, cache, *parts, n,
+                                             k=k).numpy().view(np.uint32)
+        with self._lock:
+            slot = self._staging.pop() if self._staging else _Staging(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            h, nn, t = slot.inputs(hh, nonces, limbs)
+            buf = ethash_cuda.ethash_verify(full_size, cache, h, nn, t, n,
+                                            k=k, stream=self.stream,
+                                            out=slot.output(k))
             slot.read_back(buf)
         result = slot.result(sc.winner_buffer_words(k))
         # a dispatch that raised keeps its slot: its copies may still run
@@ -512,12 +598,14 @@ class ValidationBackend:
             return []
         self.batch_sizes.observe(float(len(checks)))
         verdicts: list[bool | None] = [None] * len(checks)
-        # group by algorithm: each group is one device dispatch
-        # (mixed-algorithm batches cross chain boundaries legitimately)
-        groups: dict[str, list[int]] = {}
+        # group by (algorithm, ethash epoch): each group is one device
+        # dispatch (mixed-algorithm batches cross chain boundaries
+        # legitimately)
+        groups: dict[tuple[str, int], list[int]] = {}
         for i, c in enumerate(checks):
-            groups.setdefault((c.algorithm or "sha256d").lower(), []).append(i)
-        for algo, idxs in groups.items():
+            algo = (c.algorithm or "sha256d").lower()
+            groups.setdefault((algo, _epoch_of(c)), []).append(i)
+        for (algo, _epoch), idxs in groups.items():
             sub = [checks[i] for i in idxs]
             group_verdicts: list[bool] | None = None
             device_eligible = algo in _DEVICE_ALGOS

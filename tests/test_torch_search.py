@@ -124,8 +124,13 @@ def test_explicit_cpu_backends_build():
     assert isinstance(mgr.backend_for("x11"), search.X11TorchBackend)
     assert isinstance(mgr.backend_for("x11", kind="python"),
                       search.X11NumpyBackend)
-    with pytest.raises(KeyError):  # ethash is not ported yet
-        mgr.backend_for("ethash")
+    # ethash (ported with ROADMAP A10): every kind is the epoch-managed
+    # backend over tiers of that kind
+    for kind in ("torch", "python"):
+        eth = mgr.backend_for("ethash", kind=kind)
+        assert isinstance(eth, search.EthashManagedBackend) and eth.kind == kind
+    with pytest.raises(KeyError):  # an algorithm the port does not carry
+        mgr.backend_for("kawpow")
     warm = mgr.prepare_backend("sha256d", warm_count=lambda b: 64)
     assert isinstance(warm, search.TorchBackend)
 

@@ -361,12 +361,15 @@ def test_dispatches_do_not_wait_on_the_loops_default_executor(sha_batch):
 
 
 def test_port_refuses_what_it_does_not_carry_yet():
-    # x11 is carried since ROADMAP A9 (the host chain, tests/test_torch_x11.py);
-    # its live-network alias refuses while the chain is uncertified
+    # x11 is carried since ROADMAP A9 (the host chain, tests/test_torch_x11.py)
+    # and ethash since A10 (tests/test_torch_ethash*.py); their live-network
+    # aliases refuse while the chains are uncertified
     with pytest.raises(ValueError, match="not certified canonical"):
         pow_host.pow_digest(bytes(80), "dash")
-    with pytest.raises(ValueError, match="A10"):
-        pow_host.pow_digest(bytes(80), "ethash")
+    with pytest.raises(ValueError, match="not certified canonical"):
+        pow_host.pow_digest(bytes(80), "etchash")
+    with pytest.raises(ValueError, match="no host PoW digest"):
+        pow_host.pow_digest(bytes(80), "kawpow")
 
 
 # -- the pool ledger ----------------------------------------------------------

@@ -203,18 +203,24 @@ Phases:
 34. ethash epoch 0: the compiled cache generator against the python chain
    at 61 and 1,021 rows, exact; the epoch-0 cache (16,776,896 bytes) in
    seconds; the DAG (1,073,739,904 bytes) by B7a, its time beside its
-   bound, against the plain ``derive_items`` on the first, the last two
-   and 2^16 random items and against ``calc_dataset_item`` on 8;
+   bound, all of it against the plain ``build_dataset`` and 8 items
+   against ``calc_dataset_item``; the L2 probe's rate for random 64-byte
+   rows (``ethash.cu`` ``l2_probe_kernel``, its size raised until the rate
+   stops rising, or said to be a lower estimate) and B7a's cache-row bytes
+   (~275 GB) as a rate and a share of it;
 35. B7b against the plain version, buffer for buffer: the full tier at
    2^20 lanes and the light tier at 2^12, each with one winner, an
    overflow at k = 16, a count ending mid-block and a window past 2^32;
-   B7c on 1,024 shares with forged ones at k = 16 and k = 256; 16 dense
-   results equal across the light and full plain versions and the host
-   oracle (``hashimoto_light_batch``);
-36. B7b full at 2^22 lanes, the engine's launch and 2^24, light at 2^14,
-   and a 1,024-share B7c call, each beside its bound (operations counted
-   from the SASS of B7's counting build; bytes), the SM clock and power
-   sampled;
+   the light tier at counts 0, 1 and 37; both at the engine's launches
+   and the light tier at 2^14 with ~8 winners; B7c on 1,024 shares with
+   forged ones at k = 16 and k = 256; 16 dense results equal across the
+   light and full plain versions and the host oracle
+   (``hashimoto_light_batch``);
+36. B7b full at 2^22 lanes, the engine's launch and 2^24, light at 2^14
+   and the engine's 2^18 (with its cache-row bytes as a rate and a share
+   of the probe's), and a 1,024-share B7c call, each beside its bound
+   (operations counted from the SASS of B7's counting build; bytes), the
+   SM clock and power sampled;
 37. solo ethash: ``Application`` with ``mining.algorithm = "ethash"`` on
    the card at epoch 0 (the light tier at once, the full tier when its
    DAG lands: the time to it), 20 s on the full tier (its steady rate
@@ -223,7 +229,10 @@ Phases:
    prefetched: light, then full, epoch 0's DAG evicted): the times to
    each epoch's first share and full tier, ``build_failures`` 0, at
    most ``ETHASH_MAX_FULL_TIERS`` DAGs resident, the memory back after the
-   eviction and after the stop; every share through the host oracle,
+   eviction and after the stop; epoch 2's switch broken down from the
+   template's move (``EpochSwitchClock``: the job at the backend, the
+   cache, B7a's launch and run, each light call's run on the card, the
+   first full-tier group, the first share); every share through the host oracle,
    the mock chain's refusals counted, B7a-B7b launched and the plain
    version not;
 38. ethash at the pool ledger: 8 flushes of 1,024 epoch-0 shares (one in
@@ -4933,6 +4942,12 @@ ETHASH_FLUSHES = 8            # 1,024-share ethash flushes through the ledger
 SOLO_ETHASH_MIN_SHARE = 0.95  # phase 37's window against B7b full's rate
 ETHASH_DAG_SLICE = 1 << 20    # items a plain build_dataset call (phase 34)
 ETHASH_PLAIN_SLICE = 1 << 22  # lanes a plain hashimoto pass (phase 35)
+# the L2 probe: chains of L2_PROBE_STEPS rows, in waves (an SM's resident
+# blocks on every SM) quadrupled from 1 up to L2_PROBE_MAX_WAVES until a
+# size adds under L2_PROBE_PLATEAU to the rate
+L2_PROBE_STEPS = 2048
+L2_PROBE_MAX_WAVES = 64
+L2_PROBE_PLATEAU = 0.01
 
 
 def ethash_limbs_of(v: int):
@@ -4965,10 +4980,71 @@ def ethash_oracle(full_size: int, cache, header_hashes, nonces):
     return np.concatenate(res) if res else np.zeros((0, 32), np.uint8)
 
 
+# B7b light's resident warps an SM before its redesign (the one-thread
+# light core, 154 registers); the quad core must run more
+ETHASH_LIGHT_WARPS_BEFORE = 12
+
+
+def l2_probe_rate(dev, stream) -> tuple[float, str]:
+    """The L2's rate for B7a's and B7b light's reads (the L2 probe of
+    ``ethash.cu``: random 64-byte rows of a 16 MiB buffer, a quarter a
+    thread of a quad, many in flight), in bytes/s: the highest over its
+    sizes (waves quadrupled until the rate stops rising), and a line on
+    it that says whether it stopped (else it is a lower estimate)."""
+    import torch
+
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    buf = torch.randint(-(1 << 31), 1 << 31, (1 << ec.PROBE_ROW_BITS, 16),
+                        dtype=torch.int32, device=dev, generator=gen)
+    info, = ec.kernel_info(dev, (ec.PROBE_KERNEL,))
+    wave = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * info["blocks_per_sm"])
+    sink = torch.empty(L2_PROBE_MAX_WAVES * wave * ec.THREADS,
+                       dtype=torch.int32, device=dev)
+    rates, parts, waves = [], [], 1
+    while waves <= L2_PROBE_MAX_WAVES:
+        blocks = waves * wave
+        ms, per = median_ms(lambda: ec.l2_probe(buf, blocks, L2_PROBE_STEPS,
+                                                stream=stream, sink=sink),
+                            stream, reps=3)
+        nbytes = ec.probe_bytes(blocks, L2_PROBE_STEPS)
+        rates.append(nbytes / ms * 1e3)
+        parts.append(f"{waves} wave(s), {nbytes / 1e9:.2f} GB in {ms:.4f} ms "
+                     f"({', '.join(f'{t:.4f}' for t in per)}) = "
+                     f"{rates[-1] / 1e12:.3f} TB/s")
+        if len(rates) > 1 and rates[-1] / rates[-2] - 1 < L2_PROBE_PLATEAU:
+            break
+        waves *= 4
+    rise = rates[-1] / rates[-2] - 1 if len(rates) > 1 else float("inf")
+    verdict = (f"its plateau (the last size {rise:+.2%})"
+               if rise < L2_PROBE_PLATEAU else
+               f"still rising at {L2_PROBE_MAX_WAVES} waves ({rise:+.2%}): a "
+               "lower estimate of the L2's rate")
+    return max(rates), (
+        f"L2 probe, random 64-byte rows of 16 MiB, {info['registers']} "
+        f"registers, a wave {wave} blocks ({info['blocks_per_sm']} an SM) of "
+        f"{L2_PROBE_STEPS} steps: {'; '.join(parts)}; "
+        f"{max(rates) / 1e12:.3f} TB/s, {verdict}")
+
+
+def l2_share(kind: str, lanes: int, ms: float, probe: float) -> str:
+    """A kernel's cache-row bytes through L2, the rate they imply in
+    ``ms`` and its share of the probe's rate ``probe``."""
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+
+    nbytes = ec.row_bytes(kind, lanes)
+    rate = nbytes / ms * 1e3
+    return (f"{nbytes / 1e9:.1f} GB of cache rows through L2 = "
+            f"{rate / 1e12:.3f} TB/s, {rate / probe:.1%} of the probe's")
+
+
 def ethash_resources(dev) -> None:
     """Phase 1's part on B7: each kernel's registers, local memory (stack
     and spills) and resident warps from the CUDA runtime, and ptxas's stack
-    and spills; fails if a kernel spills or keeps a stack."""
+    and spills; fails if a kernel spills or keeps a stack, or if B7b light
+    runs no more warps an SM than before its redesign."""
     from otedama_tpu_torch.kernels import cuda_build
     from otedama_tpu_torch.kernels import ethash_cuda as ec
 
@@ -4979,6 +5055,10 @@ def ethash_resources(dev) -> None:
               "warps an SM", flush=True)
         check(k["local_bytes"] == 0, f"B7 {k['kernel']} spills or keeps a "
               f"stack: {k['local_bytes']} B of local memory")
+        if k["kernel"] == "search_light_kernel":
+            check(k["warps_per_sm"] > ETHASH_LIGHT_WARPS_BEFORE,
+                  f"B7b light runs {k['warps_per_sm']} warps an SM, not more "
+                  f"than the one-thread core's {ETHASH_LIGHT_WARPS_BEFORE}")
     stacks = [line.strip() for line in
               ec.build_info.get("ptxas", "").splitlines() if "stack frame" in line]
     check(all(line.startswith("0 bytes stack frame, 0 bytes spill stores")
@@ -4986,8 +5066,12 @@ def ethash_resources(dev) -> None:
     if stacks:
         print(f"   B7 ptxas: {len(stacks)} functions, every one with 0 bytes "
               "of stack frame and spills", flush=True)
+    # the full search is straight-line code; the others' hot loop is 16
+    # parents of an item core (B7a, B7b light: a thread's quarter of four
+    # items; B7c: one item)
     for kernel in ec.KERNELS:
-        for line in cuda_build.kernel_report(ec.build_info, kernel, loop=False):
+        for line in cuda_build.kernel_report(
+                ec.build_info, kernel, loop=kernel != "search_full_kernel"):
             if line.startswith("SASS"):
                 print(f"   B7 {line}", flush=True)
 
@@ -5083,14 +5167,17 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
           f"(the plain version: {plain_ms['dag'] / 1e3:.2f} s, "
           f"{ETHASH_DAG_SLICE} items a slice, host clock); 8 items = "
           "calc_dataset_item", flush=True)
+    probe, probe_text = l2_probe_rate(dev, stream)
+    print(f"   {probe_text}; B7a: {l2_share('dag', n_items, dag_ms, probe)}",
+          flush=True)
 
     # -- 35. B7 against the plain version ---------------------------------------
     from otedama_tpu_torch.runtime.search import (ETHASH_CUDA_BATCH,
                                                   ETHASH_LIGHT_LANES)
 
-    phase("35 B7b (full at 2^20 lanes and the engine's 2^26, light at 2^12 "
-          "and the engine's 2^18) and B7c against ethash_torch on the card, "
-          "buffer for buffer")
+    phase("35 B7b (full at 2^20 lanes and the engine's 2^26, light at 2^12, "
+          "2^14, the engine's 2^18 and counts 0, 1 and 37) and B7c against "
+          "ethash_torch on the card, buffer for buffer")
     hh = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
 
     def dense_limbs(base, lanes, full):
@@ -5134,17 +5221,26 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
                     ethash_limbs_of(tgt.limbs_to_target(lim[order[8]])))
         search_case("a window past 2^32", full, (1 << 32) - lanes // 2, lanes,
                     lanes - 1, ethash_limbs_of((1 << 256) // lanes * 8))
+    # B7b light at the edge counts: no lane, one (a quad with one live
+    # pair), 37 (a quad half past the count) in a 64-lane window
+    for count, top in ((0, (1 << 256) - 1), (1, (1 << 256) - 1),
+                       (37, (1 << 256) // 4)):
+        b, _ = search_case(f"count {count}", False, int(rng.integers(1 << 32)),
+                           64, count - 1, ethash_limbs_of(top))
+        check(int(b[32]) <= count, f"count {count}: n = {b[32]}")
     # the engine's own launches (phase 37): the full tier's ETHASH_CUDA_BATCH
-    # lanes, the light tier's ETHASH_LIGHT_LANES, ~8 winners each (k = 32:
-    # every word), the window past 2^32; the plain full tier hashed
-    # ETHASH_PLAIN_SLICE lanes at a time
-    for full, lanes in ((True, ETHASH_CUDA_BATCH), (False, ETHASH_LIGHT_LANES)):
+    # lanes, the light tier's ETHASH_LIGHT_LANES (and 2^14, phase 36's other
+    # light time), ~8 winners each (k = 32: every word), the window past
+    # 2^32; the plain full tier hashed ETHASH_PLAIN_SLICE lanes at a time
+    for full, lanes in ((True, ETHASH_CUDA_BATCH), (False, 1 << 14),
+                        (False, ETHASH_LIGHT_LANES)):
         b, plain_s = search_case(
-            "the engine's launch, ~8 winners", full, (1 << 32) - lanes // 3,
-            lanes, lanes - 1, ethash_limbs_of((1 << 256) // lanes * 8), k=32,
+            "~8 winners", full, (1 << 32) - lanes // 3, lanes, lanes - 1,
+            ethash_limbs_of((1 << 256) // lanes * 8), k=32,
             chunk=ETHASH_PLAIN_SLICE if full else None)
-        check(1 <= int(b[64]) <= 32, f"the engine's launch: n = {b[64]}")
-        plain_ms["full" if full else "light"] = plain_s * 1e3
+        check(1 <= int(b[64]) <= 32, f"{lanes} lanes: n = {b[64]}")
+        if lanes != 1 << 14:
+            plain_ms["full" if full else "light"] = plain_s * 1e3
         print(f"   the plain version at {lanes} lanes: {plain_s:.2f} s "
               "(host clock)", flush=True)
     # B7c: 1,024 shares, each its own header hash and nonce, one in ~9 forged
@@ -5189,10 +5285,15 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
     phase("36 B7 times beside the bound")
     counted = counts.result()
     print(f"   B7 from the SASS of its counting build ({counted['seconds']:.1f}"
-          f" s): an item {counted['item']}, a full-tier hash "
-          f"{counted['full']} (instructions: all, ALU pipe, FMA pipe); a "
-          f"light hash {ec.lane_ops(counted, 'light')} integer instructions",
-          flush=True)
+          f" s; instructions: all, ALU pipe, FMA pipe, shuffles): an item "
+          f"of the quad core {counted['item']}, of the one-thread core "
+          f"{counted['item1']}; a full-tier hash {counted['full']}; a thread "
+          f"of B7b light (half a hash) with one access {counted['light1']} "
+          f"and with two {counted['light2']}", flush=True)
+    for kind, what in (("dag", "an item"), ("light", "a light hash")):
+        ops, whose = ec.lane_ops(counted, kind)
+        print(f"   the bound of {what}: {ops} integer instructions, from "
+              f"{whose}", flush=True)
     out = torch.empty(winner_buffer_words(16), dtype=torch.int32, device=dev)
 
     def bound(kind, lanes):
@@ -5217,7 +5318,9 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
             print(f"   B7b {'full' if full else 'light'} {lanes} lanes: "
                   f"{ms:.3f} ms ({', '.join(f'{t:.3f}' for t in per)}) = "
                   f"{lanes / ms / 1e3:.2f} MH/s; bound {b_ms:.3f} ms by {by} "
-                  f"({b_ms / ms:.1%} of it; {text})", flush=True)
+                  f"({b_ms / ms:.1%} of it; {text})"
+                  + ("" if full else f"; {l2_share('light', lanes, ms, probe)}"),
+                  flush=True)
         vout = torch.empty(winner_buffer_words(256), dtype=torch.int32, device=dev)
         verify_ms, per = median_ms(lambda: ec.ethash_verify(
             full_size, cache_d, *on, n, k=256, stream=stream, out=vout),
@@ -5229,8 +5332,8 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
           f"{sms} SMs, so a call is about one lane's light hash", flush=True)
     d_bound, d_by, d_text = bound("dag", n_items)
     print(f"   B7a: {dag_ms:.2f} ms a build; bound {d_bound:.3f} ms by {d_by} "
-          f"({d_bound / dag_ms:.1%} of it; {d_text}); its 256 cache rows an "
-          f"item are {n_items * 256 * 64 / 1e9:.0f} GB of L2 reads", flush=True)
+          f"({d_bound / dag_ms:.1%} of it; {d_text}); "
+          f"{l2_share('dag', n_items, dag_ms, probe)}", flush=True)
     print(f"   {sampled.summary()}; {card}", flush=True)
     full_ms = times[(True, ETHASH_CUDA_BATCH)]
     light_ms = times[(False, ETHASH_LIGHT_LANES)]
@@ -5245,7 +5348,9 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
             "plain_ms": plain_ms["dag"], "bound_ms": d_bound,
             "bound_by": d_by, "library_ms": None,
             "path": f"epoch 0's DAG, {n_items} items, all compared (phase "
-                    "34); a launch is one wrapper call of one kernel launch"},
+                    "34); a launch is one wrapper call of one kernel launch; "
+                    f"the bound's count from {ec.lane_ops(counted, 'dag')[1]}; "
+                    + l2_share("dag", n_items, dag_ms, probe)},
         "ethash_search_full": {
             "name": "ethash_search_full", "route": "cuda", "source": src,
             "replaces": "otedama_tpu/kernels/ethash.py:501",
@@ -5263,7 +5368,9 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
             "bound_by": l_by, "library_ms": None,
             "path": f"B7b light at the engine's {ETHASH_LIGHT_LANES} lanes "
                     "(ms, plain, bound); a launch is one wrapper call of 2 + "
-                    "ceil(lanes / 2^30) kernel launches (3 here)"},
+                    "ceil(lanes / 2^30) kernel launches (3 here); the "
+                    f"bound's count from {ec.lane_ops(counted, 'light')[1]}; "
+                    + l2_share("light", ETHASH_LIGHT_LANES, light_ms, probe)},
         "ethash_verify": {
             "name": "ethash_verify", "route": "cuda", "source": src,
             "replaces": "otedama_tpu/kernels/ethash.py:542",
@@ -5278,6 +5385,120 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
     del dag, cache_d, cache_p
     torch.cuda.empty_cache()
     return {"records": records, "state": state}
+
+
+class EpochSwitchClock:
+    """Phase 37's breakdown of an epoch switch: from ``start()`` (the
+    template's move) the times, on the host's clock, at which the new
+    epoch's job reaches the backend and its cache is ready, and for each B7
+    call enqueued after it (B7a, B7b light and full of any epoch, told
+    apart by their ``full_size``) its enqueue, and the start and end of its
+    work on the card by CUDA events recorded around it on its stream,
+    against an event recorded at ``start()`` on an idle stream. It wraps
+    the public wrappers ``ethash_cuda.build_dag`` and ``ethash_search``
+    (each still counts its launch) and the backend's ``_tier_for`` and
+    ``_light_tier``, and puts them back in ``stop()``."""
+
+    def __init__(self, dev, backend, epoch: int):
+        import torch
+
+        from otedama_tpu_torch.kernels import ethash as eth
+        from otedama_tpu_torch.kernels import ethash_cuda as ec
+
+        self.torch, self.ec, self.eth = torch, ec, eth
+        self.dev, self.backend, self.epoch = dev, backend, epoch
+        self.full_size = eth.dataset_size(epoch * eth.EPOCH_LENGTH)
+        self.stamps: dict[str, float] = {}
+        self.calls: list[tuple] = []      # (what, enqueued s, e0, e1)
+        self.lock = threading.Lock()
+        self.t0 = None
+
+    def _timed(self, what, stream, fn):
+        ev = self.torch.cuda.Event
+        e0, e1 = ev(enable_timing=True), ev(enable_timing=True)
+        t = time.monotonic() - self.t0
+        e0.record(stream)
+        out = fn()
+        e1.record(stream)
+        with self.lock:
+            self.calls.append((what, t, e0, e1))
+        return out
+
+    def start(self) -> None:
+        ec, eth, backend = self.ec, self.eth, self.backend
+        self.saved = (ec.build_dag, ec.ethash_search)
+        build_dag, search = self.saved
+        tier_for = backend._tier_for
+        light_tier = backend._light_tier
+        sizes = {eth.dataset_size(e * eth.EPOCH_LENGTH): e
+                 for e in range(self.epoch + 1)}
+
+        def stamp(key):
+            with self.lock:
+                self.stamps.setdefault(key, time.monotonic() - self.t0)
+
+        def timed_build_dag(cache, full_size, *, stream=None, out=None):
+            return self._timed(
+                f"B7a epoch {sizes.get(full_size)}", stream,
+                lambda: build_dag(cache, full_size, stream=stream, out=out))
+
+        def timed_search(full_size, source, *args, full, stream=None, **kw):
+            return self._timed(
+                f"B7b {'full' if full else 'light'} epoch "
+                f"{sizes.get(full_size)}", stream,
+                lambda: search(full_size, source, *args, full=full,
+                               stream=stream, **kw))
+
+        def timed_tier_for(jc):
+            if jc.block_number // eth.EPOCH_LENGTH == self.epoch:
+                stamp("job at the backend")
+            return tier_for(jc)
+
+        def timed_light_tier(epoch):
+            tier = light_tier(epoch)
+            if epoch == self.epoch:
+                stamp("cache ready")
+            return tier
+
+        self.stream = self.torch.cuda.Stream(self.dev)
+        self.ref = self.torch.cuda.Event(enable_timing=True)
+        self.t0 = time.monotonic()
+        self.ref.record(self.stream)
+        ec.build_dag, ec.ethash_search = timed_build_dag, timed_search
+        backend._tier_for, backend._light_tier = timed_tier_for, timed_light_tier
+
+    def stop(self) -> None:
+        if self.t0 is not None and "_tier_for" in vars(self.backend):
+            self.ec.build_dag, self.ec.ethash_search = self.saved
+            del self.backend._tier_for, self.backend._light_tier
+
+    def report(self, first_share: float, full_tier: float) -> str:
+        """The breakdown as text (seconds from the template's move; the
+        card's start-end of each call and its ms)."""
+        self.torch.cuda.synchronize(self.dev)
+        rows = []
+        for what, t, e0, e1 in self.calls:
+            a = self.ref.elapsed_time(e0) / 1e3
+            b = self.ref.elapsed_time(e1) / 1e3
+            rows.append((what, t, a, b, e0.elapsed_time(e1)))
+        text = [f"{k} {v:.3f} s" for k, v in sorted(self.stamps.items(),
+                                                   key=lambda kv: kv[1])]
+        new = f"epoch {self.epoch}"
+        old = [r for r in rows if not r[0].endswith(new)]
+        if old:
+            text.append(f"{len(old)} calls of earlier epochs enqueued after "
+                        f"the move, the last ending on the card at "
+                        f"{max(r[3] for r in old):.3f} s")
+        for what in (f"B7a {new}", f"B7b light {new}", f"B7b full {new}"):
+            mine = [r for r in rows if r[0] == what]
+            if what.startswith("B7b full"):
+                mine = mine[:3]      # the first group
+            text += [f"{what} #{i + 1} enqueued {t:.3f} s, on the card "
+                     f"{a:.3f}-{b:.3f} s ({ms:.2f} ms)"
+                     for i, (_, t, a, b, ms) in enumerate(mine)]
+        text.append(f"the full tier {full_tier:.3f} s; the first share "
+                    f"{first_share:.3f} s")
+        return "; ".join(text)
 
 
 def ethash_solo_phase(dev, card: str, b7_rate: float) -> dict:
@@ -5388,16 +5609,25 @@ def ethash_solo_phase(dev, card: str, b7_rate: float) -> dict:
             torch.cuda.synchronize(dev)
             mem_before = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            # epoch 2, not prefetched: light, then full; epoch 0 evicted
+            # epoch 2, not prefetched: light, then full; epoch 0 evicted;
+            # each step of the switch timed
+            clock = marks["clock"] = EpochSwitchClock(dev, backend, 2)
+            clock.start()
             chain.height = 60_004
             t2s = time.monotonic()
-            await until_(lambda: first_share_of(2, t2s) is not None, 60.0,
-                         "a share of epoch 2")
+            # both watched at once: the full tier may land before the share
+            _, t_full = await asyncio.gather(
+                until_(lambda: first_share_of(2, t2s) is not None, 60.0,
+                       "a share of epoch 2"),
+                until_(lambda: 2 in backend.snapshot()["full_epochs"], 60.0,
+                       "epoch 2's full tier"))
             marks["share2"] = first_share_of(2, t2s) - t2s
-            marks["full2"] = await until_(
-                lambda: 2 in backend.snapshot()["full_epochs"], 60.0,
-                "epoch 2's full tier") - t2s
+            marks["full2"] = t_full - t2s
             await asyncio.sleep(1.0)
+            clock.stop()
+            marks["switch2"] = clock.report(
+                first_share_of(2, t2s) - clock.t0,
+                marks["full2"] + t2s - clock.t0)
             torch.cuda.synchronize(dev)
             marks["memory"] = (mem_before, torch.cuda.memory_allocated(dev),
                                torch.cuda.max_memory_allocated(dev))
@@ -5406,6 +5636,8 @@ def ethash_solo_phase(dev, card: str, b7_rate: float) -> dict:
             tiers.cancel()
             return backend
         finally:
+            if "clock" in marks:
+                marks["clock"].stop()
             await app.stop()
 
     counters = {"dag": ec.dag_launches, "full": ec.search_full_launches,
@@ -5480,6 +5712,9 @@ def ethash_solo_phase(dev, card: str, b7_rate: float) -> dict:
           f"a DAG {dag_bytes / 2**30:.3f} GiB), {mem_after / 2**30:.3f} GiB "
           f"after the app's stop ({mem_idle / 2**30:.3f} before); "
           f"build_failures 0", flush=True)
+    print(f"   epoch 2's switch, from the template's move to block 60,005 "
+          f"(host clock; the card's by CUDA events): {marks['switch2']}",
+          flush=True)
     print(f"   {len(shares)} shares over {len(by_epoch)} heights, each "
           f"through the host oracle at or under its target; "
           f"{len(outcomes)} block candidates, {refused} refused by the mock "

@@ -5,9 +5,9 @@
 //   - B7a, dag_kernel: build_dataset_device (:611) over _derive_items_device
 //     (:356): dataset item i is keccak-512 of the cache row i % rows with
 //     its first word xored by i, 256 FNV folds with cache rows picked by
-//     FNV of (i ^ j, mix[j % 16]), keccak-512 again. One thread an item,
-//     written straight into the page-major DAG (items 2p and 2p + 1 are
-//     page p: the same bytes as item-major), exactly n_items of them;
+//     FNV of (i ^ j, mix[j % 16]), keccak-512 again. A quad of threads
+//     four items, written straight into the page-major DAG (items 2p and
+//     2p + 1 are page p: the same bytes as item-major), exactly n_items;
 //   - B7b, search_full_kernel and search_light_kernel:
 //     hashimoto_winners_device (:501) over _hashimoto_device_words (:415):
 //     s = keccak-512(header hash || 64-bit LE nonce), the nonce being
@@ -17,7 +17,7 @@
 //     EXACTLY with the target (limbs: the byte-swapped result words,
 //     _result_limbs :462); WINNERS compacted as lane offsets. The full tier
 //     reads each page from the DAG, the light tier derives its two items
-//     from the cache (B7a's code as a device function);
+//     from the cache (B7a's item core);
 //   - B7c, verify_kernel: hashimoto_verify_device (:542), the light core
 //     over rows of (header hash, nonce, target limbs); FAILURES compacted as
 //     row offsets. The min top limb covers every in-range lane.
@@ -26,22 +26,38 @@
 // it equals the reference's lane-order compaction word for word.
 //
 // What bounds them on an H100 (chip_smoke.py phases 34-36):
-//   - B7a: integer instructions (two keccak-f1600s and 256 x 16 FNV words an
-//     item; counted from the SASS of the counting build below). Its
-//     256-row gathers a item (~275 GB an epoch-0 build) are L2 reads: the
-//     16 MiB cache fits the 50 MB L2. One thread an item keeps enough rows
-//     in flight to hide their latency;
+//   - B7a and B7b light: the L2's rate for random 64-byte cache rows. An
+//     item reads 256 of them (16 KiB: ~275 GB an epoch-0 DAG, 2 MiB a light
+//     hash); the 16 MiB cache stays in the 50 MB L2. Both run
+//     one cooperative item core (derive_quad): a quad of threads (lanes 4m
+//     .. 4m + 3, q = lane % 4) derives four items. Each thread runs the
+//     first and the last keccak-512 of its own item; between them a 4 x 4
+//     transpose by shuffles gives thread q quarter q (words 4q .. 4q + 3) of
+//     all four mixes, each parent's mix word is broadcast from the thread
+//     that holds it, and each thread loads quarter q of the four parent
+//     rows. One warp-wide load then covers 8 whole rows (one L1 wavefront an
+//     item-parent, where a thread an item touched 32 lines a load), and a
+//     thread keeps four independent chains in flight. `% rows` and `%
+//     n_pages` are a multiply-high by a magic number that the C entry
+//     points make on the host (fastmod). B7a's quad stores its four items as 256
+//     contiguous bytes. B7b light runs two threads a hash, each holding one
+//     half of the 32-word mix and deriving that half's item of each page,
+//     so a quad is two hashes x two items: the four items of one access.
+//     The page's mix word comes from its owner by a shuffle after a 15-select
+//     tree over the owner's 16 words (pick16); the seed keccak-512 and the
+//     keccak-256 seal run once a hash, on the pair's first thread. The
+//     access loop stays rolled: unrolled, the light core is too large;
 //   - B7b full: device memory. The 1 GiB DAG does not fit L2, so each hash
 //     reads 64 random 128-byte pages (8,192 bytes) from HBM. The mix lives
 //     in registers: the 64 accesses are unrolled, so mix[a % 32] is a
 //     register and not a local-memory index; a page is 8 x 16-byte
 //     ld.global.nc;
-//   - B7b light and B7c: integer instructions (128 items a hash). Their
-//     access loop stays rolled (an item is ~25k instructions); mix[a % 32]
-//     is picked from the 32 registers by masks (pick).
-// `% rows` and `% n_pages` divide by a run-time prime: the plain `%`, exact
-// for every 32-bit dividend. Every loop is fully inlined: no call, no
-// stack, no local array (chip_smoke.py phase 1 fails otherwise).
+//   - B7c: integer instructions (128 items a hash, a thread a share, the
+//     one-thread core derive_item and hashimoto_light). Its access loop
+//     stays rolled (an item is ~25k instructions); mix[a % 32] is picked
+//     from the 32 registers by masks (pick); `%` divides.
+// Every loop is fully inlined: no call, no stack, no local array
+// (chip_smoke.py phase 1 fails otherwise).
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -49,8 +65,11 @@
 #include "sha256_device.cuh"
 
 // A counting build (-DETHASH_COUNT, ethash_cuda.instruction_counts) unrolls
-// every loop and holds only dag_kernel and search_full_kernel, each then
-// straight-line code whose SASS is what a thread executes.
+// every loop and holds only straight-line kernels whose SASS is what a
+// thread executes: dag_kernel (an item of the quad core), search_full_kernel,
+// item1_count_kernel (an item of the one-thread core) and
+// light1_count_kernel / light2_count_kernel (a thread of B7b light with one
+// and two accesses: their difference is an access).
 #ifdef ETHASH_COUNT
 #define ETHASH_ROLLED _Pragma("unroll")
 #else
@@ -60,6 +79,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr uint32_t kFnvPrime = 0x01000193u;
 constexpr int kParents = 256;
 constexpr int kAccesses = 64;
@@ -93,6 +113,16 @@ __device__ __forceinline__ uint64_t rotl64(uint64_t x, int n) {
 }
 __device__ __forceinline__ uint64_t join64(uint32_t lo, uint32_t hi) {
   return static_cast<uint64_t>(lo) | (static_cast<uint64_t>(hi) << 32);
+}
+
+// a % d for every 32-bit a and d >= 1 by a multiply-high (Lemire's fastmod):
+// magic = floor((2^64 - 1) / d) + 1 mod 2^64, made on the host (magic_of);
+// four IMADs where `%` by a run-time d takes ~15
+// instructions
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t magic, uint32_t d) {
+  const uint64_t low = magic * a;
+  const uint64_t t = (low & 0xFFFFFFFFull) * d;
+  return static_cast<uint32_t>(((low >> 32) * d + (t >> 32)) >> 32);
 }
 
 // Keccak-f[1600] in place, the round loop rolled (the light tier inlines
@@ -233,12 +263,12 @@ __device__ __forceinline__ void seed_words(const uint32_t hh[8], uint32_t nonce_
 
 // the cmix fold and the keccak-256 seal of s || cmix (96 bytes, rate 136):
 // the compare-order limbs of the result into h
-__device__ __forceinline__ void seal(const uint32_t s[16], const uint32_t mix[32],
-                                     uint32_t h[8]) {
-  uint32_t cmix[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    cmix[i] = fnv(fnv(fnv(mix[4 * i], mix[4 * i + 1]), mix[4 * i + 2]), mix[4 * i + 3]);
+__device__ __forceinline__ uint32_t cmix_word(const uint32_t m[4]) {
+  return fnv(fnv(fnv(m[0], m[1]), m[2]), m[3]);
+}
+
+__device__ __forceinline__ void seal_cmix(const uint32_t s[16], const uint32_t cmix[8],
+                                          uint32_t h[8]) {
   uint64_t A[25];
 #pragma unroll
   for (int i = 0; i < 8; ++i) A[i] = join64(s[2 * i], s[2 * i + 1]);
@@ -254,6 +284,14 @@ __device__ __forceinline__ void seal(const uint32_t s[16], const uint32_t mix[32
     h[2 * i] = bswap32(static_cast<uint32_t>(A[i]));
     h[2 * i + 1] = bswap32(static_cast<uint32_t>(A[i] >> 32));
   }
+}
+
+__device__ __forceinline__ void seal(const uint32_t s[16], const uint32_t mix[32],
+                                     uint32_t h[8]) {
+  uint32_t cmix[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cmix[i] = cmix_word(mix + 4 * i);
+  seal_cmix(s, cmix, h);
 }
 
 __device__ __forceinline__ void init_mix(const uint32_t s[16], uint32_t mix[32]) {
@@ -321,21 +359,194 @@ __device__ __forceinline__ void hashimoto_full(const uint4* __restrict__ dag,
   seal(s, mix, h);
 }
 
+// -- the quad core (B7a, B7b light) ---------------------------------------------
+
+// p != 0 ? a : b in a predicated select that the compiler keeps as one (a
+// select chain in C++ is turned back into an indexed load, and the words
+// into a local-memory array)
+__device__ __forceinline__ uint32_t sel(uint32_t p, uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %3, 0;\n\tselp.b32 %0, %1, %2, p;\n\t}"
+      : "=r"(r)
+      : "r"(a), "r"(b), "r"(p));
+  return r;
+}
+
+// x[a % 16] for a run-time a: a tree of 15 selects on a's low four bits
+__device__ __forceinline__ uint32_t pick16(const uint32_t x[16], uint32_t a) {
+  uint32_t t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = sel(a & 1u, x[2 * i + 1], x[2 * i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i] = sel(a & 2u, t[2 * i + 1], t[2 * i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) t[i] = sel(a & 4u, t[2 * i + 1], t[2 * i]);
+  return sel(a & 8u, t[1], t[0]);
+}
+
+// A quad's 4 x 4 transpose of 16-byte quarters: thread q's quarter j (words
+// 4j .. 4j + 3 of x) becomes thread j's quarter q. Two xor-butterfly stages
+// of 8 shuffles; its own inverse. q = lane % 4; every lane of the warp calls
+// it.
+__device__ __forceinline__ void quad_transpose(uint32_t x[16], uint32_t q) {
+#pragma unroll
+  for (uint32_t k = 1; k <= 2; k <<= 1) {
+    const uint32_t up = q & k;
+#pragma unroll
+    for (uint32_t b = 0; b < 4; ++b) {
+      if (b & k) continue;
+#pragma unroll
+      for (uint32_t w = 0; w < 4; ++w) {
+        const uint32_t lo = x[4 * b + w];
+        const uint32_t hi = x[4 * (b | k) + w];
+        const uint32_t got = __shfl_xor_sync(kFull, up ? lo : hi, k);
+        x[4 * b + w] = up ? got : lo;
+        x[4 * (b | k) + w] = up ? hi : got;
+      }
+    }
+  }
+}
+
+// Four dataset items by a quad of threads: item i is idx[i], thread q's own
+// item is own = idx[q] (passed apart: idx is never indexed at run time), and
+// thread q ends with its own item's 16 words in x. Each thread runs its own
+// item's keccak-512s. Between them thread q holds quarter q of all four
+// mixes: at parent j each item's word mix[j % 16] is broadcast from the
+// thread that holds it, and each thread loads quarter q of the four parent
+// rows, so the quad reads four whole 64-byte rows and a thread has four
+// independent loads in flight. Every lane of the warp calls it.
+__device__ __forceinline__ void derive_quad(const uint4* __restrict__ cache, uint32_t rows,
+                                            uint64_t rows_magic, uint32_t q, uint32_t own,
+                                            const uint32_t idx[4], uint32_t x[16]) {
+  const uint4* row = cache + static_cast<size_t>(fastmod(own, rows_magic, rows)) * 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint4 v = __ldg(row + r);
+    x[4 * r] = v.x;
+    x[4 * r + 1] = v.y;
+    x[4 * r + 2] = v.z;
+    x[4 * r + 3] = v.w;
+  }
+  x[0] ^= own;
+  keccak512<16>(x);
+  quad_transpose(x, q);
+  const uint4* quarter = cache + q;
+  ETHASH_ROLLED
+  for (int j0 = 0; j0 < kParents; j0 += 16) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      uint4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t word = __shfl_sync(kFull, x[4 * i + (jj & 3)], jj >> 2, 4);
+        const uint32_t parent = fastmod(fnv(idx[i] ^ static_cast<uint32_t>(j0 + jj), word),
+                                        rows_magic, rows);
+        v[i] = __ldg(quarter + static_cast<size_t>(parent) * 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[4 * i] = fnv(x[4 * i], v[i].x);
+        x[4 * i + 1] = fnv(x[4 * i + 1], v[i].y);
+        x[4 * i + 2] = fnv(x[4 * i + 2], v[i].z);
+        x[4 * i + 3] = fnv(x[4 * i + 3], v[i].w);
+      }
+    }
+  }
+  quad_transpose(x, q);
+  keccak512<16>(x);
+}
+
+// One access of B7b light for the pair of threads (lanes 4m + 2p, 4m + 2p +
+// 1; q = lane % 4, half = q & 1) that holds half `half` of a hash's mix:
+// each hash's page from its word mix[a % 32] (word a % 16 of half (a / 16) %
+// 2, from the thread that holds it), then the quad's four items (the two
+// pages' two halves) by the quad core, this thread's folded into its half.
+__device__ __forceinline__ void light_access(uint32_t a, uint32_t mix[16], uint32_t s0a,
+                                             uint32_t s0b, const uint4* __restrict__ cache,
+                                             uint32_t rows, uint64_t rows_magic,
+                                             uint32_t n_pages, uint64_t pages_magic,
+                                             uint32_t q) {
+  const uint32_t mine = pick16(mix, a);
+  const uint32_t owner = (a >> 4) & 1u;
+  const uint32_t pa = fastmod(fnv(a ^ s0a, __shfl_sync(kFull, mine, owner, 4)),
+                              pages_magic, n_pages);
+  const uint32_t pb = fastmod(fnv(a ^ s0b, __shfl_sync(kFull, mine, 2 + owner, 4)),
+                              pages_magic, n_pages);
+  const uint32_t idx[4] = {2 * pa, 2 * pa + 1, 2 * pb, 2 * pb + 1};
+  uint32_t item[16];
+  derive_quad(cache, rows, rows_magic, q, 2 * ((q & 2) ? pb : pa) + (q & 1), idx, item);
+#pragma unroll
+  for (int w = 0; w < 16; ++w) mix[w] = fnv(mix[w], item[w]);
+}
+
+// B7b light for the pair of threads that hashes `nonce`: the pair's first
+// thread (half 0) runs the seed keccak-512 and the keccak-256 seal, each
+// thread holds half `half` of the 32-word mix and derives that half's item
+// of every page, beside the quad's other pair. The result's limbs land in h
+// on the first thread only. Every lane of the warp calls it. accesses: 64,
+// the loop rolled; the counting build's 1 or 2 are written out (a loop of
+// two is left rolled there), from the opaque access a0.
+template <int accesses>
+__device__ __forceinline__ void light_pair(const uint32_t hh[8], uint32_t nonce,
+                                           const uint4* __restrict__ cache, uint32_t rows,
+                                           uint64_t rows_magic, uint32_t n_pages,
+                                           uint64_t pages_magic, uint32_t q, uint32_t a0,
+                                           uint32_t h[8]) {
+  const uint32_t half = q & 1;
+  uint32_t s[16] = {};
+  if (half == 0) seed_words(hh, nonce, 0u, s);
+#pragma unroll
+  for (int w = 0; w < 16; ++w) s[w] = __shfl_sync(kFull, s[w], q & 2, 4);
+  const uint32_t s0a = __shfl_sync(kFull, s[0], 0, 4);
+  const uint32_t s0b = __shfl_sync(kFull, s[0], 2, 4);
+  // the mix's half (init_mix: each half starts as s), and this thread's
+  // half of s for the seal
+  uint32_t mix[16], sk[8];
+#pragma unroll
+  for (int w = 0; w < 16; ++w) mix[w] = s[w];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) sk[w] = half ? s[8 + w] : s[w];
+  if constexpr (accesses <= 2) {
+    light_access(a0, mix, s0a, s0b, cache, rows, rows_magic, n_pages, pages_magic, q);
+    if constexpr (accesses == 2)
+      light_access(a0 + 1, mix, s0a, s0b, cache, rows, rows_magic, n_pages, pages_magic, q);
+  } else {
+    ETHASH_ROLLED
+    for (uint32_t a = a0; a < a0 + static_cast<uint32_t>(accesses); ++a)
+      light_access(a, mix, s0a, s0b, cache, rows, rows_magic, n_pages, pages_magic, q);
+  }
+  // cmix: words 0-3 from half 0's mix, 4-7 from half 1's
+  uint32_t cmix[8], sfull[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    cmix[c] = cmix_word(mix + 4 * c);
+    cmix[4 + c] = __shfl_xor_sync(kFull, cmix[c], 1);
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    sfull[w] = sk[w];
+    sfull[8 + w] = __shfl_xor_sync(kFull, sk[w], 1);
+  }
+  if (half == 0) seal_cmix(sfull, cmix, h);
+}
+
 }  // namespace
 
-// B7a: items first .. first + n - 1 of the DAG
+// B7a: items first .. first + n - 1 of the DAG, a quad of threads four
 extern "C" __global__ void __launch_bounds__(kThreads)
-    dag_kernel(const uint4* __restrict__ cache, uint32_t rows, uint32_t first,
-               uint32_t n, uint4* __restrict__ dag) {
+    dag_kernel(const uint4* __restrict__ cache, uint32_t rows, uint64_t rows_magic,
+               uint32_t first, uint32_t n, uint4* __restrict__ dag) {
   const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t idx = first + i;
+  const uint32_t base = first + (i & ~3u);
+  const uint32_t idx[4] = {base, base + 1, base + 2, base + 3};
   uint32_t item[16];
-  derive_item(cache, rows, idx, item);
-  uint4* out = dag + static_cast<size_t>(idx) * 4;
+  // every lane of a quad takes part (the last quad may reach past n)
+  derive_quad(cache, rows, rows_magic, i & 3u, first + i, idx, item);
+  if (i >= n) return;
+  uint4* out = dag + static_cast<size_t>(first + i) * 4;
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    out[q] = make_uint4(item[4 * q], item[4 * q + 1], item[4 * q + 2], item[4 * q + 3]);
+  for (int r = 0; r < 4; ++r)
+    out[r] = make_uint4(item[4 * r], item[4 * r + 1], item[4 * r + 2], item[4 * r + 3]);
 }
 
 // B7b, full: lanes first .. first + n - 1 of the window
@@ -355,23 +566,68 @@ extern "C" __global__ void __launch_bounds__(kThreads)
   block_min_to<kThreads>(best, &out[2 * k + 2]);
 }
 
-#ifndef ETHASH_COUNT
-
-// B7b, light: as the full tier, each page derived from the cache
-extern "C" __global__ void __launch_bounds__(kThreads)
-    search_light_kernel(const EthJob job, const uint4* __restrict__ cache,
-                        uint32_t rows, uint32_t n_pages, uint32_t first, uint32_t n,
-                        uint32_t* out, int k) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+// B7b, light: lanes first .. first + n - 1 of the window, two threads a lane
+template <int accesses>
+__device__ __forceinline__ void search_light(const EthJob& job, const uint4* __restrict__ cache,
+                                             uint32_t rows, uint64_t rows_magic,
+                                             uint32_t n_pages, uint64_t pages_magic,
+                                             uint32_t first, uint32_t n, uint32_t* out,
+                                             int k, uint32_t a0) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t i = t >> 1;
+  uint32_t h[8];
+  // every pair takes part (the last quad may reach past n)
+  light_pair<accesses>(job.hh, job.base + first + i, cache, rows, rows_magic, n_pages,
+                       pages_magic, threadIdx.x & 3u, a0, h);
   uint32_t best = kNoWinner;
-  if (i < n) {
-    uint32_t s[16], h[8];
-    seed_words(job.hh, job.base + first + i, 0u, s);
-    hashimoto_light(cache, rows, n_pages, s, h);
+  if ((t & 1u) == 0 && i < n) {
     best = h[0];
     if (limbs_le(h, job.target)) take_slot(out, k, first + i, h[0]);
   }
   block_min_to<kThreads>(best, &out[2 * k + 2]);
+}
+
+#ifdef ETHASH_COUNT
+
+// the counting build's own kernels: an item of the one-thread core (B7c's),
+// and a thread of B7b light with one and with two accesses (from the access
+// `first`, opaque to the compiler as a loop's index is)
+extern "C" __global__ void __launch_bounds__(kThreads)
+    item1_count_kernel(const uint4* __restrict__ cache, uint32_t rows, uint32_t first,
+                       uint4* __restrict__ dag) {
+  const uint32_t idx = first + blockIdx.x * kThreads + threadIdx.x;
+  uint32_t item[16];
+  derive_item(cache, rows, idx, item);
+  uint4* out = dag + static_cast<size_t>(idx) * 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    out[r] = make_uint4(item[4 * r], item[4 * r + 1], item[4 * r + 2], item[4 * r + 3]);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    light1_count_kernel(const EthJob job, const uint4* __restrict__ cache, uint32_t rows,
+                        uint64_t rows_magic, uint32_t n_pages, uint64_t pages_magic,
+                        uint32_t first, uint32_t n, uint32_t* out, int k) {
+  search_light<1>(job, cache, rows, rows_magic, n_pages, pages_magic, first, n, out, k,
+                  first);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    light2_count_kernel(const EthJob job, const uint4* __restrict__ cache, uint32_t rows,
+                        uint64_t rows_magic, uint32_t n_pages, uint64_t pages_magic,
+                        uint32_t first, uint32_t n, uint32_t* out, int k) {
+  search_light<2>(job, cache, rows, rows_magic, n_pages, pages_magic, first, n, out, k,
+                  first);
+}
+
+#else
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    search_light_kernel(const EthJob job, const uint4* __restrict__ cache, uint32_t rows,
+                        uint64_t rows_magic, uint32_t n_pages, uint64_t pages_magic,
+                        uint32_t first, uint32_t n, uint32_t* out, int k) {
+  search_light<kAccesses>(job, cache, rows, rows_magic, n_pages, pages_magic, first, n, out,
+                          k, 0u);
 }
 
 // B7c: rows first .. first + n - 1: hh [rows, 8] LE header-hash words,
@@ -399,20 +655,51 @@ extern "C" __global__ void __launch_bounds__(kThreads)
   block_min_to<kThreads>(best, &out[2 * k + 2]);
 }
 
+// Not a port: a probe of the rate at which the L2 serves B7a's and B7b
+// light's reads. Each quad reads 4 random 64-byte rows of buf (2^row_bits
+// rows; 16 MiB at 18) at a time, a quarter a thread as derive_quad does,
+// `steps` times; the rows come from an LCG and not from the data, so many
+// are in flight. sink is written only if a thread's xor of its words hits a
+// constant: the loads stay.
+extern "C" __global__ void __launch_bounds__(kThreads)
+    l2_probe_kernel(const uint4* __restrict__ buf, uint32_t row_bits, uint32_t steps,
+                    uint32_t* sink) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t r[4];
+#pragma unroll
+  for (uint32_t i = 0; i < 4; ++i) r[i] = (t >> 2) * 0x9E3779B9u + i * 0x85EBCA6Bu;
+  const uint4* quarter = buf + (threadIdx.x & 3u);
+  uint32_t acc = 0;
+#pragma unroll 4
+  for (uint32_t s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = r[i] * 1664525u + 1013904223u;
+      const uint4 v = __ldg(quarter + static_cast<size_t>(r[i] >> (32 - row_bits)) * 4);
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+  }
+  if (acc == 0x5EED5EEDu) sink[t] = acc;
+}
+
 namespace {
 
 unsigned int blocks_for(uint64_t threads) {
   return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
 
+// the fastmod magic of d >= 1
+uint64_t magic_of(uint32_t d) { return ~0ull / d + 1; }
+
 // the kernels by number, for their attributes: 1 dag, 2 search full, 3
-// search light, 4 verify
+// search light, 4 verify, 5 the L2 probe
 const void* kernel_fn(int which) {
   switch (which) {
     case 1: return reinterpret_cast<const void*>(dag_kernel);
     case 2: return reinterpret_cast<const void*>(search_full_kernel);
     case 3: return reinterpret_cast<const void*>(search_light_kernel);
     case 4: return reinterpret_cast<const void*>(verify_kernel);
+    case 5: return reinterpret_cast<const void*>(l2_probe_kernel);
     default: return nullptr;
   }
 }
@@ -424,13 +711,13 @@ extern "C" {
 // B7a on `stream`, without synchronizing: items first .. first + n - 1 of
 // the DAG (device, n_items x 16 words, page-major = item-major) from the
 // cache (device, rows x 16 words, 16-byte aligned). Returns a cudaError_t.
-int otedama_ethash_dag(const uint32_t* cache, unsigned int rows,
-                       unsigned long long first, unsigned long long n, uint32_t* dag,
-                       void* stream) {
-  if (rows == 0 || first + n > (1ull << 32)) return static_cast<int>(cudaErrorInvalidValue);
+int otedama_ethash_dag(const uint32_t* cache, unsigned int rows, unsigned long long first,
+                       unsigned long long n, uint32_t* dag, void* stream) {
+  if (rows == 0 || first + n > (1ull << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   dag_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint4*>(cache), rows, static_cast<uint32_t>(first),
+      reinterpret_cast<const uint4*>(cache), rows, magic_of(rows), static_cast<uint32_t>(first),
       static_cast<uint32_t>(n), reinterpret_cast<uint4*>(dag));
   return static_cast<int>(cudaGetLastError());
 }
@@ -441,9 +728,9 @@ int otedama_ethash_dag(const uint32_t* cache, unsigned int rows,
 // pages (device, n_pages x 32 words); else the cache (rows x 16 words).
 // Returns a cudaError_t.
 int otedama_ethash_search(const uint32_t* job, int full, const uint32_t* src,
-                          unsigned int rows, unsigned int n_pages,
-                          unsigned long long lanes, int k, uint32_t* out, void* stream) {
-  if (k < 1 || n_pages == 0 || (!full && rows == 0) || lanes >= (1ull << 32))
+                          unsigned int rows, unsigned int n_pages, unsigned long long lanes,
+                          int k, uint32_t* out, void* stream) {
+  if (k < 1 || n_pages == 0 || lanes >= (1ull << 32) || (!full && rows == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EthJob j;
@@ -457,9 +744,9 @@ int otedama_ethash_search(const uint32_t* job, int full, const uint32_t* src,
       search_full_kernel<<<blocks_for(n), kThreads, 0, st>>>(
           j, s4, n_pages, static_cast<uint32_t>(first), static_cast<uint32_t>(n), out, k);
     else
-      search_light_kernel<<<blocks_for(n), kThreads, 0, st>>>(
-          j, s4, rows, n_pages, static_cast<uint32_t>(first), static_cast<uint32_t>(n),
-          out, k);
+      search_light_kernel<<<blocks_for(2 * n), kThreads, 0, st>>>(
+          j, s4, rows, magic_of(rows), n_pages, magic_of(n_pages), static_cast<uint32_t>(first),
+          static_cast<uint32_t>(n), out, k);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -487,6 +774,19 @@ int otedama_ethash_verify(const uint32_t* hh, const uint32_t* nonces,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   finalize_buffer<<<1, 1, 0, st>>>(out, k, 0u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The L2 probe on `stream`, without synchronizing: `blocks` blocks of
+// l2_probe_kernel over buf (device, 2^row_bits rows of 16 words), each quad
+// reading 4 x `steps` rows; sink: device, blocks x 128 words. Returns a
+// cudaError_t.
+int otedama_ethash_l2_probe(const uint32_t* buf, unsigned int row_bits, unsigned int blocks,
+                            unsigned int steps, uint32_t* sink, void* stream) {
+  if (row_bits == 0 || row_bits > 26 || blocks == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  l2_probe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint4*>(buf), row_bits, steps, sink);
   return static_cast<int>(cudaGetLastError());
 }
 

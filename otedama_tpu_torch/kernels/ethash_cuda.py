@@ -17,6 +17,12 @@ carries a numpy epoch (the reference's ``[rows, 16]`` cache and ``[n_items,
 16]`` DAG, uint32) onto a device, as the tests do with the reference's
 native-built cache.
 
+B7a and B7b light share one item core (a quad of threads derives four
+items); their run-time moduli ``% rows`` and ``% n_pages`` are a
+multiply-high by a magic number that the C entry points make.
+``l2_probe`` times the L2's rate for the rows that core reads (a
+measurement, on no path).
+
 Each wrapper launches on a CUDA stream without synchronizing and returns
 its device result (the search and verify: the ``uint32[2k+3]`` buffer as
 an int32 tensor, lane offsets in its first k words; the DAG build: the
@@ -51,9 +57,10 @@ search_full_launches = LaunchCounter()   # B7b, full tier
 search_light_launches = LaunchCounter()  # B7b, light tier
 verify_launches = LaunchCounter()        # B7c
 
-# the kernels by number (csrc/ethash.cu kernel_fn)
+# the kernels by number (csrc/ethash.cu kernel_fn), then the L2 probe
 KERNELS = ("dag_kernel", "search_full_kernel", "search_light_kernel",
            "verify_kernel")
+PROBE_KERNEL = "l2_probe_kernel"
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,6 +71,7 @@ _SIGNATURES = {
     "otedama_ethash_dag": [_P, _U, _ULL, _ULL, _P, _P],
     "otedama_ethash_search": [_P, _I, _P, _U, _U, _ULL, _I, _P, _P],
     "otedama_ethash_verify": [_P, _P, _P, _ULL, _P, _U, _U, _I, _P, _P],
+    "otedama_ethash_l2_probe": [_P, _U, _U, _U, _P, _P],
     "otedama_ethash_kernel_info": [_I] + [ctypes.POINTER(ctypes.c_int)] * 4,
 }
 
@@ -153,9 +161,9 @@ def build_dag(cache: torch.Tensor, full_size: int, *,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """The epoch's DAG from its cache: ``[n_pages, 32]`` (int32 on the
     card; page p is items 2p and 2p + 1). On a CUDA device ONE launch of
-    B7a on ``stream`` (default: the current stream) into ``out`` (default:
-    a new tensor, allocated on that stream), not waited for. On the CPU
-    the plain version (int64 words)."""
+    B7a (a quad of threads four items) on ``stream`` (default: the
+    current stream) into ``out`` (default: a new tensor, allocated on that
+    stream), not waited for. On the CPU the plain version (int64 words)."""
     n_items = full_size // eth.HASH_BYTES
     if cache.device.type == "cpu":
         return ethash_torch.build_dataset(cache, full_size).reshape(-1, 32)
@@ -172,9 +180,9 @@ def build_dag(cache: torch.Tensor, full_size: int, *,
         raise ValueError(f"out holds {out.numel()} words, the DAG {n_items * 16}")
     lib = load_library()
     with torch.cuda.device(device):
-        _check(lib, lib.otedama_ethash_dag(cache.data_ptr(), cache.shape[0], 0,
-                                           n_items, out.data_ptr(),
-                                           stream.cuda_stream), "ethash_dag")
+        _check(lib, lib.otedama_ethash_dag(
+            cache.data_ptr(), cache.shape[0], 0, n_items, out.data_ptr(),
+            stream.cuda_stream), "ethash_dag")
     dag_launches.add()
     return out
 
@@ -197,7 +205,8 @@ def ethash_search(full_size: int, source: torch.Tensor, header_hash: bytes,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Search ``batch`` lanes from nonce ``base`` (mod 2^32) in ONE launch
     of B7b: ``full`` reads pages from the DAG ``source`` (``[n_pages,
-    32]``), else derives them from the cache ``source`` (``[rows, 16]``);
+    32]``), else derives them from the cache ``source`` (``[rows, 16]``;
+    two threads a lane, a quad two lanes);
     lanes past offset ``last`` (-1: none) take no part. Returns the
     ``uint32[2k+3]`` winner buffer (lane offsets) as an int32 tensor.
 
@@ -223,12 +232,12 @@ def ethash_search(full_size: int, source: torch.Tensor, header_hash: bytes,
         stream = torch.cuda.current_stream(device)
     out = _out_for(k, device, stream, out)
     job = pack_job(header_hash, base, limbs8)
+    rows = 0 if full else source.shape[0]
     lib = load_library()
     with torch.cuda.device(device):
         _check(lib, lib.otedama_ethash_search(
-            job.ctypes.data, int(full), source.data_ptr(),
-            0 if full else source.shape[0], n_pages, lanes, k,
-            out.data_ptr(), stream.cuda_stream), "ethash_search")
+            job.ctypes.data, int(full), source.data_ptr(), rows, n_pages,
+            lanes, k, out.data_ptr(), stream.cuda_stream), "ethash_search")
     (search_full_launches if full else search_light_launches).add()
     return out
 
@@ -291,19 +300,68 @@ def ethash_verify(full_size: int, cache: torch.Tensor, hh: torch.Tensor,
     return out
 
 
+# -- the L2 probe --------------------------------------------------------------------
+
+PROBE_ROW_BITS = 18     # the probe's buffer: 2^18 rows of 64 bytes, 16 MiB
+
+
+def l2_probe(buf: torch.Tensor, blocks: int, steps: int, *,
+             stream: torch.cuda.Stream | None = None,
+             sink: torch.Tensor | None = None) -> int:
+    """One launch of the L2 probe (``csrc/ethash.cu`` ``l2_probe_kernel``,
+    on no path: a measurement) on ``stream``, not waited for: ``blocks``
+    blocks of 128 threads, each quad reading 4 x ``steps`` random 64-byte
+    rows of ``buf`` (int32 ``[2^PROBE_ROW_BITS, 16]`` on the card) a
+    quarter a thread, as B7a's and B7b light's item core reads the cache.
+    Returns the bytes it reads."""
+    device = _card(buf.device)
+    _check_source("buf", buf, 16, device)
+    if buf.shape[0] != 1 << PROBE_ROW_BITS:
+        raise ValueError(f"the probe reads 2^{PROBE_ROW_BITS} rows, not "
+                         f"{buf.shape[0]}")
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    if sink is None or sink.numel() < blocks * THREADS:
+        with torch.cuda.stream(stream):
+            sink = torch.empty(blocks * THREADS, dtype=torch.int32,
+                               device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        _check(lib, lib.otedama_ethash_l2_probe(
+            buf.data_ptr(), PROBE_ROW_BITS, blocks, steps, sink.data_ptr(),
+            stream.cuda_stream), "ethash_l2_probe")
+    return probe_bytes(blocks, steps)
+
+
+def probe_bytes(blocks: int, steps: int) -> int:
+    """The bytes one launch of ``blocks`` probe blocks of ``steps`` steps
+    reads."""
+    return blocks * THREADS // 4 * 4 * steps * eth.HASH_BYTES
+
+
+def row_bytes(kind: str, lanes: int) -> int:
+    """The cache-row bytes that ``lanes`` lanes of ``kind`` read through
+    L2, whatever the roofline counts: 256 rows of 64 bytes an item, an
+    item a lane of ``dag``, 128 items a hash of ``light`` (2 MiB)."""
+    items = {"dag": 1, "light": 2 * eth.ACCESSES}[kind] * lanes
+    return items * eth.DATASET_PARENTS * eth.HASH_BYTES
+
+
 # -- resources, instructions, bounds ----------------------------------------------------
 
-def kernel_info(device) -> list[dict]:
-    """Each B7 kernel's resources on ``device``, from the CUDA runtime:
-    threads a block, registers a thread, local memory a thread (stack and
-    spills; 0 for none), resident blocks and warps an SM."""
+def kernel_info(device, kernels=KERNELS) -> list[dict]:
+    """Each of ``kernels`` (by name: the B7 kernels, or ``PROBE_KERNEL``)
+    on ``device``, from the CUDA runtime: threads a block, registers a
+    thread, local memory a thread (stack and spills; 0 for none), resident
+    blocks and warps an SM."""
     lib = load_library()
     out = []
     with torch.cuda.device(device):
-        for which, name in enumerate(KERNELS, 1):
+        for name in kernels:
             v = [ctypes.c_int() for _ in range(4)]
             _check(lib, lib.otedama_ethash_kernel_info(
-                which, *(ctypes.byref(x) for x in v)), name)
+                (KERNELS + (PROBE_KERNEL,)).index(name) + 1,
+                *(ctypes.byref(x) for x in v)), name)
             threads, regs, local, blocks = (x.value for x in v)
             out.append({"kernel": name, "threads": threads, "registers": regs,
                         "local_bytes": local, "blocks_per_sm": blocks,
@@ -311,16 +369,25 @@ def kernel_info(device) -> list[dict]:
     return out
 
 
+# the counting build's kernels: (key, kernel)
+COUNTED = (("item", "dag_kernel"), ("full", "search_full_kernel"),
+           ("item1", "item1_count_kernel"), ("light1", "light1_count_kernel"),
+           ("light2", "light2_count_kernel"))
+
+
 def instruction_counts() -> dict[str, dict]:
-    """The instructions a thread of B7a executes for one item (``"item"``)
-    and a thread of the full search for one hash (``"full"``), by pipe,
-    from the SASS of ``csrc/ethash.cu``'s counting build
-    (``-DETHASH_COUNT``: every loop unrolled, each kernel straight-line
-    code, frame included), and the build's ``seconds``. Needs ``nvcc``
-    and ``cuobjdump``, not a card. Raises if a loop is left."""
+    """The instructions a thread executes, by pipe, from the SASS of
+    ``csrc/ethash.cu``'s counting build (``-DETHASH_COUNT``: every loop
+    unrolled, each kernel straight-line code, frame included): ``"item"``
+    a thread of B7a (an item: a quad derives four), ``"full"`` a thread of
+    the full search (a hash), ``"item1"`` an item of the one-thread core
+    (B7c's), ``"light1"`` and ``"light2"`` a thread of B7b light (half a
+    hash) with one and with two accesses; and the build's ``seconds``.
+    Needs ``nvcc`` and ``cuobjdump``, not a card. Raises if a loop is
+    left."""
     info = cuda_build.cubin(SOURCE, HEADERS, ("ETHASH_COUNT",))
     out = {"seconds": info.get("seconds", 0.0)}
-    for key, kernel in (("item", "dag_kernel"), ("full", "search_full_kernel")):
+    for key, kernel in COUNTED:
         (fn, code), = cuda_build.sass_functions(info["library"], kernel).items()
         loop = cuda_build.hot_loop(code)
         if loop:
@@ -335,16 +402,31 @@ def instruction_counts() -> dict[str, dict]:
 INT_LANES_PER_SM = 128
 
 
-def lane_ops(counts: dict, kind: str) -> int:
-    """Integer instructions (ALU and FMA pipes) a lane of ``kind`` runs:
-    ``dag`` an item; ``full`` a hash of the full tier; ``light`` and
-    ``verify`` a hash of the light core, counted as the full tier's hash
-    (its access loop, seed and seal) plus 128 items' derivations."""
-    item = counts["item"]["alu"] + counts["item"]["fma"]
-    full = counts["full"]["alu"] + counts["full"]["fma"]
-    return {"dag": item, "full": full,
-            "light": full + 2 * eth.ACCESSES * item,
-            "verify": full + 2 * eth.ACCESSES * item}[kind]
+def lane_ops(counts: dict, kind: str) -> tuple[int, str]:
+    """Integer instructions (ALU and FMA pipes) a lane of ``kind`` runs,
+    and whose count it is: ``full`` a hash of the full tier; ``verify`` a
+    hash of the one-thread light core (B7c's), counted as the full tier's
+    hash (its access loop, seed and seal) plus 128 items' of that core;
+    ``dag`` an item and ``light`` a hash of B7b light, each the smaller of
+    the quad core's count (``item``; two threads' ``light1`` and 63 more
+    accesses, the difference of ``light2`` and ``light1``) and the
+    one-thread core's (``item1``; ``verify``'s), as B6's bound takes the
+    smaller of its two designs' (``x11_cuda.bound_chain``)."""
+    ops = {key: c["alu"] + c["fma"] for key, c in counts.items()
+           if isinstance(c, dict)}
+    one = {"dag": ops["item1"],
+           "light": ops["full"] + 2 * eth.ACCESSES * ops["item1"]}
+    if kind == "full":
+        return ops["full"], "the full tier's counting build"
+    if kind == "verify":
+        return one["light"], "the one-thread core's counting build"
+    access = ops["light2"] - ops["light1"]
+    quad = {"dag": ops["item"],
+            "light": 2 * (ops["light1"] + (eth.ACCESSES - 1) * access)}[kind]
+    if quad <= one[kind]:
+        return quad, "the quad core's counting build"
+    return one[kind], ("the one-thread core's counting build (smaller than "
+                       "the quad core's)")
 
 
 def bound_ms(kind: str, lanes: int, counts: dict, *, sms: int,
@@ -357,7 +439,7 @@ def bound_ms(kind: str, lanes: int, counts: dict, *, sms: int,
     8,192 bytes a hash (``full``: the 1 GiB DAG does not fit the card's
     50 MB L2, so each of a hash's 64 pages comes from device memory); the
     cache read once (``light``), and each share's 72 bytes (``verify``)."""
-    ops = lanes * lane_ops(counts, kind)
+    ops = lanes * lane_ops(counts, kind)[0]
     cache_bytes = rows * eth.HASH_BYTES
     nbytes = {"dag": cache_bytes + full_size,
               "full": lanes * eth.ACCESSES * eth.MIX_BYTES,

@@ -1,6 +1,6 @@
 """Two trees of the port's kernels on one card, in turns.
 
-    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b2,b5,b6]
+    python -m otedama_tpu_torch.kernels.kernel_ab A B [--kernels b1,b2,b5,b6,b7]
         [--lanes 1024,4096,262144]
 
 ``A`` and ``B`` are directories that each hold an ``otedama_tpu_torch``
@@ -10,7 +10,8 @@ under the gitignored ``build/`` (``git archive <commit> otedama_tpu_torch
 Each tree runs in a process of its own and is driven only through its
 public wrappers (``scrypt_cuda.romix``, ``scrypt_cuda.scrypt_verify``,
 ``sha256_cuda.sha256d_search``, ``sha256_cuda.sha256d_verify``,
-``x11_cuda.x11_search``, ``x11_cuda.x11_verify``), so two designs with
+``x11_cuda.x11_search``, ``x11_cuda.x11_verify``, ``ethash_cuda.build_dag``,
+``ethash_cuda.ethash_search``, ``ethash_cuda.ethash_verify``), so two designs with
 different C interfaces compare. The script builds both
 trees at once (each into its own ``build/``, only the libraries the
 chosen kernels need, printing their registers and spills), then times
@@ -29,7 +30,11 @@ call):
   and up to 4,096 shares one call alone (events around it, waited for);
 - B6 (``x11_search``) per launch at 2^20, 2^22 and 2^24 lanes, and the
   verify (``x11_verify``, k = 16, 5 planted failures) per 1,024-share
-  call, back to back and with the host's enqueue hidden.
+  call, back to back and with the host's enqueue hidden;
+- B7 at epoch 0 (the cache from the compiled generator): B7a
+  (``build_dag``) per DAG, B7b light (``ethash_search``) per call at 2^14
+  lanes and the engine's 2^18, and as controls B7b full at 2^24 lanes and
+  B7c (``ethash_verify``, k = 16, 5 planted failures) per 1,024-share call.
 
 Every process makes the same inputs from one seed and reports a digest
 of each output (for B1 also at counts 1, 3, 256 x 37 + 1, across 2^32,
@@ -39,8 +44,11 @@ overflowed batch — count and min — and a batch whose one failure is its
 last lane; for B6 searches at counts 0, 1, 37, one past a 512-lane block
 and one past a 2^19-lane chunk, an overflowed window — count and min —,
 a window whose nonces wrap past 2^32, each shavite counter order, and
-verify calls at counts 0, 1, 1,000 and 1,024); the script fails unless
-A's digests equal B's. It needs a
+verify calls at counts 0, 1, 1,000 and 1,024; for B7 the whole epoch-0
+DAG, light searches at counts 0, 1 and 37, one past a 64-lane and a
+128-lane block, an overflowed window — count and min — and a window
+whose nonces wrap past 2^32, a full search and the verify call); the
+script fails unless A's digests equal B's. It needs a
 CUDA card and prints the card's name and power limit first and last.
 """
 
@@ -91,6 +99,10 @@ def build_tree(tree: Path, kernels: list[str]) -> dict:
         wanted.append((sc, ("search_kernel", "verify_kernel")))
     if "b6" in kernels:
         wanted.append((xc, ("x11",)))
+    if "b7" in kernels:
+        from otedama_tpu_torch.kernels import ethash_cuda as ec
+        wanted.append((ec, ("dag_kernel", "search_light_kernel",
+                            "search_full_kernel", "verify_kernel")))
     for mod, names in wanted:
         _, info = cuda_build.build(mod.SOURCE, mod.HEADERS)
         fn = None
@@ -286,7 +298,23 @@ def time_tree(tree: Path, kernels: list[str], lanes_list: list[int]) -> dict:
                     lambda: verify(w, t, n))
     if "b6" in kernels:
         _time_b6(xc, dev, on_card, times, digests)
+    if "b7" in kernels:
+        _time_b7(dev, on_card, times, digests)
     return {"times": times, "digests": digests}
+
+
+def _limbs_of(v: int) -> list[int]:
+    return [(v >> (224 - 32 * j)) & 0xFFFFFFFF for j in range(8)]
+
+
+def _kept(buf) -> str:
+    """every word of a winner buffer, or the count and the min of an
+    overflowed one"""
+    b = buf.cpu().numpy().view(np.uint32)
+    k = (len(b) - 3) // 2
+    n = int(b[2 * k])
+    b = b if n <= k else b[[2 * k, 2 * k + 2]]
+    return f"{hashlib.sha256(b.tobytes()).hexdigest()[:16]} n={n}"
 
 
 B6_LANES = (1 << 20, 1 << 22, 1 << 24)
@@ -303,17 +331,6 @@ def _time_b6(xc, dev, on_card, times, digests) -> None:
     prefix = rng.integers(0, 256, 76, dtype=np.uint8).tobytes()
     out = torch.empty(2 * K + 3, dtype=torch.int32, device=dev)
 
-    def limbs_of(v: int) -> list[int]:
-        return [(v >> (224 - 32 * j)) & 0xFFFFFFFF for j in range(8)]
-
-    def kept(buf) -> str:
-        """every word, or the count and the min of an overflowed buffer"""
-        b = buf.cpu().numpy().view(np.uint32)
-        k = (len(b) - 3) // 2
-        n = int(b[2 * k])
-        b = b if n <= k else b[[2 * k, 2 * k + 2]]
-        return f"{hashlib.sha256(b.tobytes()).hexdigest()[:16]} n={n}"
-
     for name, base, count, top in (
             ("count 0", 5, 0, (1 << 256) - 1), ("count 1", 77, 1, 1 << 255),
             ("count 37", int(rng.integers(1 << 32)), 37, 1 << 253),
@@ -323,16 +340,16 @@ def _time_b6(xc, dev, on_card, times, digests) -> None:
              (1 << 19) + 1, 1 << 243),
             ("overflowed (count, min)", 7, 1 << 14, 1 << 251),
             ("nonces wrap past 2^32", (1 << 32) - 1000, 1 << 14, 1 << 246)):
-        digests[f"B6 search, {name}"] = kept(xc.x11_search(
-            prefix, base, count - 1, limbs_of(top), batch=max(count, 1),
+        digests[f"B6 search, {name}"] = _kept(xc.x11_search(
+            prefix, base, count - 1, _limbs_of(top), batch=max(count, 1),
             k=K, device=dev, out=out))
     for v in B6_VARIANTS:
-        digests[f"B6 search, counter order {v}"] = kept(xc.x11_search(
-            prefix, 99, 4095, limbs_of(1 << 250), batch=4096, k=K,
+        digests[f"B6 search, counter order {v}"] = _kept(xc.x11_search(
+            prefix, 99, 4095, _limbs_of(1 << 250), batch=4096, k=K,
             device=dev, cnt_order=xt.cnt_variant_order(v), out=out))
     for lanes in B6_LANES:
         def search(lanes=lanes):
-            xc.x11_search(prefix, 0, lanes - 1, limbs_of(0), batch=lanes,
+            xc.x11_search(prefix, 0, lanes - 1, _limbs_of(0), batch=lanes,
                           k=K, device=dev, out=out)
         times[f"B6 search {lanes} lanes"] = time_ms(search, 3)
     rows = rng.integers(0, 256, (1024, 80), dtype=np.uint8)
@@ -341,7 +358,7 @@ def _time_b6(xc, dev, on_card, times, digests) -> None:
     limbs[[0, 100, 511, 512, 1023]] = 0
     limbs = on_card(limbs)
     for count in (0, 1, 1000, 1024):
-        digests[f"B6 verify, count {count}"] = kept(xc.x11_verify(
+        digests[f"B6 verify, count {count}"] = _kept(xc.x11_verify(
             words, limbs, count, k=K, out=out))
 
     def verify():
@@ -349,6 +366,70 @@ def _time_b6(xc, dev, on_card, times, digests) -> None:
 
     times["B6 verify 1024 shares"] = time_ms(verify, 20)
     times["B6 verify 1024 shares, the card's time alone"] = device_ms(verify, 20)
+
+
+B7_LIGHT_LANES = (1 << 14, 1 << 18)   # the engine's light call: 2^18
+B7_FULL_LANES = 1 << 24
+B7_SHARES = 1024
+
+
+def _time_b7(dev, on_card, times, digests) -> None:
+    """B7's digests and times at epoch 0 through ``build_dag``,
+    ``ethash_search`` and ``ethash_verify``."""
+    import torch
+
+    from otedama_tpu_torch.kernels import ethash as eth
+    from otedama_tpu_torch.kernels import ethash_cuda as ec
+
+    rng = np.random.default_rng(SEED + 7)
+    full_size = eth.dataset_size(0)
+    cache = ec.cache_tensor(eth.make_cache(eth.cache_size(0), eth.seed_hash(0)),
+                            dev)
+    dag = ec.build_dag(cache, full_size)
+    digests["B7a epoch-0 DAG"] = digest(dag)
+    times["B7a epoch-0 DAG"] = time_ms(
+        lambda: ec.build_dag(cache, full_size, out=dag), 1)
+    hh = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+    out = torch.empty(2 * K + 3, dtype=torch.int32, device=dev)
+    for name, base, count, top in (
+            ("count 0", 5, 0, (1 << 256) - 1), ("count 1", 77, 1, 1 << 255),
+            ("count 37", int(rng.integers(1 << 32)), 37, 1 << 253),
+            ("one past a 64-lane block", int(rng.integers(1 << 32)), 65,
+             1 << 252),
+            ("one past a 128-lane block", int(rng.integers(1 << 32)), 129,
+             1 << 251),
+            ("overflowed (count, min)", 7, 1 << 12, 1 << 251),
+            ("nonces wrap past 2^32", (1 << 32) - 1000, 1 << 12, 1 << 246)):
+        digests[f"B7b light, {name}"] = _kept(ec.ethash_search(
+            full_size, cache, hh, base, count - 1, _limbs_of(top),
+            batch=max(count, 1), k=K, full=False, out=out))
+    for lanes in B7_LIGHT_LANES:
+        def light(lanes=lanes):
+            ec.ethash_search(full_size, cache, hh, 0, lanes - 1, _limbs_of(0),
+                             batch=lanes, k=K, full=False, out=out)
+        times[f"B7b light {lanes} lanes"] = time_ms(light, 1)
+    digests["B7b full, 2^16 lanes"] = _kept(ec.ethash_search(
+        full_size, dag, hh, 11, (1 << 16) - 1, _limbs_of(1 << 243),
+        batch=1 << 16, k=K, full=True, out=out))
+
+    def full():
+        ec.ethash_search(full_size, dag, hh, 0, B7_FULL_LANES - 1, _limbs_of(0),
+                         batch=B7_FULL_LANES, k=K, full=True, out=out)
+
+    times[f"B7b full {B7_FULL_LANES} lanes"] = time_ms(full, 3)
+    rows_h, rows_n = ec.share_rows(
+        rng.integers(0, 256, (B7_SHARES, 32), dtype=np.uint8),
+        rng.integers(0, 1 << 32, B7_SHARES, dtype=np.uint64))
+    limbs = np.full((B7_SHARES, 8), 0xFFFFFFFF, np.uint32)
+    limbs[[0, 100, 511, 512, 1023]] = 0
+    rows = [on_card(x) for x in (rows_h, rows_n, limbs)]
+    digests["B7c verify"] = _kept(ec.ethash_verify(full_size, cache, *rows,
+                                                   B7_SHARES, k=K, out=out))
+
+    def verify():
+        ec.ethash_verify(full_size, cache, *rows, B7_SHARES, k=K, out=out)
+
+    times[f"B7c verify {B7_SHARES} shares"] = time_ms(verify, 5)
 
 
 # -- the parent: both trees in turns ----------------------------------------------
@@ -366,7 +447,7 @@ def run_child(tree: Path, *args: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", type=Path)
-    ap.add_argument("--kernels", default="b1,b5")  # of b1, b2, b5, b6
+    ap.add_argument("--kernels", default="b1,b5")  # of b1, b2, b5, b6, b7
     ap.add_argument("--lanes", default="1024,4096,262144")
     ap.add_argument("--child", type=Path)
     ap.add_argument("--build", action="store_true")

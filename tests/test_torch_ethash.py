@@ -248,3 +248,30 @@ def test_kernel_source_constants():
     assert f"kFnvPrime = {eth.FNV_PRIME:#010x}u;" in src
     assert f"kParents = {eth.DATASET_PARENTS};" in src
     assert f"kAccesses = {eth.ACCESSES};" in src
+
+
+@pytest.mark.parametrize("kind", ["dag", "light"])
+@pytest.mark.parametrize("quad_smaller", [True, False])
+def test_bounds_take_the_smaller_item_core(kind, quad_smaller):
+    """The bounds of B7a and B7b light count the smaller of the quad core's
+    and the one-thread core's integer instructions, and say whose."""
+    def pipes(n):
+        return {"total": n + 7, "alu": n - n // 3, "fma": n // 3, "shfl": 7}
+
+    per_access = 10_000 if quad_smaller else 40_000
+    counts = {"seconds": 1.0, "item1": pipes(20_000), "full": pipes(14_000),
+              "item": pipes(per_access), "light1": pipes(40_000),
+              "light2": pipes(40_000 + per_access)}
+    quad = {"dag": per_access,
+            "light": 2 * (40_000 + (eth.ACCESSES - 1) * per_access)}[kind]
+    one = {"dag": 20_000,
+           "light": 14_000 + 2 * eth.ACCESSES * 20_000}[kind]
+    assert (quad < one) == quad_smaller
+    ops, whose = ethash_cuda.lane_ops(counts, kind)
+    assert ops == min(quad, one)
+    assert whose.startswith("the quad core's" if quad_smaller
+                            else "the one-thread core's")
+    terms = ethash_cuda.bound_ms(kind, 1 << 20, counts, sms=132,
+                                 clock_mhz=1980.0, rows=ROWS, full_size=FULL)
+    assert terms["operations"] == pytest.approx(
+        (1 << 20) * ops / (132 * 128 * 1980e6) * 1e3, rel=1e-12)

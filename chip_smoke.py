@@ -212,15 +212,18 @@ Phases:
    2^20 lanes and the light tier at 2^12, each with one winner, an
    overflow at k = 16, a count ending mid-block and a window past 2^32;
    the light tier at counts 0, 1 and 37; both at the engine's launches
-   and the light tier at 2^14 with ~8 winners; B7c on 1,024 shares with
-   forged ones at k = 16 and k = 256; 16 dense results equal across the
-   light and full plain versions and the host oracle
-   (``hashimoto_light_batch``);
+   and the light tier at 2^14 with ~8 winners; B7c at counts 0, 1, 3,
+   129, 1,023 and 1,024 (nonces over the 64 bits, one share in ~9
+   forged, every row past the count forged) at k = 16 and k = 256; 16
+   dense results equal across the light and full plain versions and the
+   host oracle (``hashimoto_light_batch``);
 36. B7b full at 2^22 lanes, the engine's launch and 2^24, light at 2^14
    and the engine's 2^18 (with its cache-row bytes as a rate and a share
    of the probe's), and a 1,024-share B7c call, each beside its bound
    (operations counted from the SASS of B7's counting build; bytes), the
-   SM clock and power sampled;
+   SM clock and power sampled; B7c on one share, and its floor: a
+   share's 16,384 dependent cache-row reads timed by the chase probe
+   (``ethash.cu`` ``chase_probe_kernel``);
 37. solo ethash: ``Application`` with ``mining.algorithm = "ethash"`` on
    the card at epoch 0 (the light tier at once, the full tier when its
    DAG lands: the time to it), 20 s on the full tier (its steady rate
@@ -4942,6 +4945,9 @@ ETHASH_FLUSHES = 8            # 1,024-share ethash flushes through the ledger
 SOLO_ETHASH_MIN_SHARE = 0.95  # phase 37's window against B7b full's rate
 ETHASH_DAG_SLICE = 1 << 20    # items a plain build_dataset call (phase 34)
 ETHASH_PLAIN_SLICE = 1 << 22  # lanes a plain hashimoto pass (phase 35)
+# B7c's counts in phase 35: none, one, an idle pair in a quad, one past a
+# block of 64 shares, an idle pair at the end, the ledger's flush
+B7C_COUNTS = (0, 1, 3, 129, 1023, 1024)
 # the L2 probe: chains of L2_PROBE_STEPS rows, in waves (an SM's resident
 # blocks on every SM) quadrupled from 1 up to L2_PROBE_MAX_WAVES until a
 # size adds under L2_PROBE_PLATEAU to the rate
@@ -5067,8 +5073,7 @@ def ethash_resources(dev) -> None:
         print(f"   B7 ptxas: {len(stacks)} functions, every one with 0 bytes "
               "of stack frame and spills", flush=True)
     # the full search is straight-line code; the others' hot loop is 16
-    # parents of an item core (B7a, B7b light: a thread's quarter of four
-    # items; B7c: one item)
+    # parents of the quad core (a thread's quarter of four items)
     for kernel in ec.KERNELS:
         for line in cuda_build.kernel_report(
                 ec.build_info, kernel, loop=kernel != "search_full_kernel"):
@@ -5176,8 +5181,9 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
                                                   ETHASH_LIGHT_LANES)
 
     phase("35 B7b (full at 2^20 lanes and the engine's 2^26, light at 2^12, "
-          "2^14, the engine's 2^18 and counts 0, 1 and 37) and B7c against "
-          "ethash_torch on the card, buffer for buffer")
+          "2^14, the engine's 2^18 and counts 0, 1 and 37) and B7c (counts "
+          "0, 1, 3, 129, 1,023 and 1,024, 64-bit nonces, k = 16 and 256) "
+          "against ethash_torch on the card, buffer for buffer")
     hh = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
 
     def dense_limbs(base, lanes, full):
@@ -5243,33 +5249,50 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
             plain_ms["full" if full else "light"] = plain_s * 1e3
         print(f"   the plain version at {lanes} lanes: {plain_s:.2f} s "
               "(host clock)", flush=True)
-    # B7c: 1,024 shares, each its own header hash and nonce, one in ~9 forged
+    # B7c: 1,024 shares, each its own header hash and 64-bit nonce (rows 0-2
+    # at 2^64 - 1, 2^63 and 2^32), one in ~9 forged. Each count runs on a
+    # row set of its own, short for the small counts, whose rows past the
+    # count are all forged: a kernel that judged them would show
     n = 1024
     hhs = rng.integers(0, 256, (n, 32), dtype=np.uint8)
-    nonces = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    nonces = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    nonces[:3] = [(1 << 64) - 1, 1 << 63, 1 << 32]
     res = et.hashimoto_dense(full_size, cache_p, hhs, nonces)[1]
     vals = limbs_of_digests(res[:, ::-1].tobytes())
     forged = rng.random(n) < 1 / 9
     limbs = np.where(forged[:, None], limbs_step(vals, -1), vals)
-    nonces_d = torch.from_numpy(nonces.astype(np.int64)).to(dev)
     rows_h, rows_n = ec.share_rows(hhs, nonces)
-    on = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
-          for x in (rows_h, rows_n, limbs)]
-    for k in (16, 256):
-        a = host_buf(ec.ethash_verify(full_size, cache_d, *on, n, k=k))
-        t0 = time.monotonic()
-        b = host_buf(et.verify_step(full_size, cache_p, on[0], nonces_d,
-                                    on[2], n, k))
-        plain_ms["verify"] = (time.monotonic() - t0) * 1e3
-        got_n = equal("verify", f"verify k={k}", a, b, k)
-        check(got_n == int(forged.sum()), f"verify: {got_n} failures, "
-              f"{int(forged.sum())} forged")
-        if k == 256:
-            check(b[:got_n].tolist() == np.nonzero(forged)[0].tolist(),
-                  "verify: failures != the forged rows")
-        print(f"   B7c, {n} shares, k={k}: {got_n} failures = the forged rows"
-              f"{' (overflow: count and min)' if got_n > k else ''}; equal",
-              flush=True)
+    nonces_d = torch.from_numpy(nonces.astype(np.int64)).to(dev)
+
+    def on_card(*parts):
+        return [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+                for x in parts]
+
+    for count in B7C_COUNTS:
+        m = min(n, count + 3)
+        lim = np.where((np.arange(m) < count)[:, None], limbs[:m],
+                       limbs_step(vals[:m], -1))
+        vrows = on_card(rows_h[:m], rows_n[:m], lim)
+        want = np.nonzero(forged[:count])[0].tolist()
+        for k in (16, 256):
+            a = host_buf(ec.ethash_verify(full_size, cache_d, *vrows, count,
+                                          k=k))
+            t0 = time.monotonic()
+            b = host_buf(et.verify_step(full_size, cache_p, vrows[0],
+                                        nonces_d[:m], vrows[2], count, k))
+            if count == n and k == 256:
+                plain_ms["verify"] = (time.monotonic() - t0) * 1e3
+            got_n = equal("verify", f"verify count {count} k={k}", a, b, k)
+            check(got_n == len(want), f"verify count {count}: {got_n} "
+                  f"failures, {len(want)} forged")
+            if got_n <= k:
+                check(b[:got_n].tolist() == want,
+                      f"verify count {count}: failures != the forged rows")
+            print(f"   B7c, count {count} of {m} rows (rows past it forged), "
+                  f"k={k}: {got_n} failures = the forged rows"
+                  f"{' (overflow: count and min)' if got_n > k else ''}, "
+                  f"min_h0={b[2 * k + 2]:#010x}; equal", flush=True)
+    on = on_card(rows_h, rows_n, limbs)
     # 16 dense results: light and full plain, and the host oracle
     dn = rng.integers(0, 1 << 32, 16, dtype=np.uint64)
     lm, lr = et.hashimoto_dense(full_size, cache_p, hh, dn)
@@ -5286,11 +5309,13 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
     counted = counts.result()
     print(f"   B7 from the SASS of its counting build ({counted['seconds']:.1f}"
           f" s; instructions: all, ALU pipe, FMA pipe, shuffles): an item "
-          f"of the quad core {counted['item']}, of the one-thread core "
-          f"{counted['item1']}; a full-tier hash {counted['full']}; a thread "
-          f"of B7b light (half a hash) with one access {counted['light1']} "
-          f"and with two {counted['light2']}", flush=True)
-    for kind, what in (("dag", "an item"), ("light", "a light hash")):
+          f"of the quad core {counted['item']}; a full-tier hash "
+          f"{counted['full']}; a thread of B7b light and B7c (half a hash) "
+          f"with one access {counted['light1']} and with two "
+          f"{counted['light2']}; the one-thread core's item, a constant: "
+          f"{ec.ONE_THREAD_ITEM} ALU and FMA", flush=True)
+    for kind, what in (("dag", "an item"), ("light", "a light hash (B7b "
+                                                     "light, B7c)")):
         ops, whose = ec.lane_ops(counted, kind)
         print(f"   the bound of {what}: {ops} integer instructions, from "
               f"{whose}", flush=True)
@@ -5325,11 +5350,35 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
         verify_ms, per = median_ms(lambda: ec.ethash_verify(
             full_size, cache_d, *on, n, k=256, stream=stream, out=vout),
             stream, reps=3)
+        one_ms, one_per = median_ms(lambda: ec.ethash_verify(
+            full_size, cache_d, *on, 1, k=256, stream=stream, out=vout),
+            stream, reps=3)
+        # B7c's floor: a share's 16,384 dependent row reads, timed as one
+        # warp's chains of that many (and twice as many: their difference
+        # is the steps alone, without the launch)
+        chase = {}
+        for steps in (ec.CHASE_STEPS, 2 * ec.CHASE_STEPS):
+            chase[steps] = median_ms(lambda: ec.chase_probe(
+                cache_d, steps, stream=stream, sink=vout), stream, reps=3)
     v_bound, v_by, v_text = bound("verify", n)
+    chase_ms = chase[ec.CHASE_STEPS][0]
+    step_ns = (chase[2 * ec.CHASE_STEPS][0] - chase_ms) / ec.CHASE_STEPS * 1e6
+    floor_ms = ec.CHASE_STEPS * step_ns / 1e6
+    b7c_floor = (f"a share's floor {floor_ms:.3f} ms: {ec.CHASE_STEPS} "
+                 f"dependent cache-row reads at {step_ns:.1f} ns (the chase "
+                 f"probe, {chase_ms:.3f} ms a launch of {ec.CHASE_STEPS} "
+                 f"steps, {chase[2 * ec.CHASE_STEPS][0]:.3f} of "
+                 f"{2 * ec.CHASE_STEPS}), before its keccaks; one share a "
+                 f"call {one_ms:.3f} ms")
     print(f"   B7c, {n} shares a call: {verify_ms:.3f} ms "
           f"({', '.join(f'{t:.3f}' for t in per)}); bound {v_bound:.4f} ms by "
-          f"{v_by} ({v_text}): {n} lanes fill {n // ec.THREADS} blocks of "
-          f"{sms} SMs, so a call is about one lane's light hash", flush=True)
+          f"{v_by} ({v_bound / verify_ms:.1%} of it; {v_text}): {n} shares, "
+          f"two threads each, fill {2 * n // ec.THREADS} blocks of {sms} SMs, "
+          f"so a call lasts about one share's dependent chain; one share a "
+          f"call {one_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in one_per)}; "
+          f"the {n}-share call {verify_ms / one_ms:.3f}x it); {b7c_floor}; "
+          f"the {n}-share call at {floor_ms / verify_ms:.1%} of that floor",
+          flush=True)
     d_bound, d_by, d_text = bound("dag", n_items)
     print(f"   B7a: {dag_ms:.2f} ms a build; bound {d_bound:.3f} ms by {d_by} "
           f"({d_bound / dag_ms:.1%} of it; {d_text}); "
@@ -5378,7 +5427,9 @@ def ethash_kernel_phases(dev, card: str, clock_mhz: float, counts) -> dict:
             "plain_ms": plain_ms["verify"], "bound_ms": v_bound,
             "bound_by": v_by, "library_ms": None,
             "path": "B7c, 1,024 shares a call; a launch is one wrapper "
-                    "call of 2 + ceil(rows / 2^30) kernel launches (3 here)"},
+                    "call of 2 + ceil(rows / 2^30) kernel launches (3 here); "
+                    f"the bound's count from {ec.lane_ops(counted, 'verify')[1]}; "
+                    + b7c_floor},
     }
     state = {"cache": cache, "full_size": full_size,
              "rate": ETHASH_CUDA_BATCH / times[(True, ETHASH_CUDA_BATCH)] * 1e3}

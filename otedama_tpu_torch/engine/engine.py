@@ -962,7 +962,7 @@ class MiningEngine:
                             )
                             t_last = await self._consume(
                                 job, p_en2s, results, dstats, t_last,
-                                p_token["done_at"],
+                                p_token["done_at"], p_t0, pend_cap,
                             )
                     else:
                         # nonce spaces exhausted: stride to this device's
@@ -1014,12 +1014,14 @@ class MiningEngine:
                 log.exception("in-flight search failed during drain")
                 continue
             done_at = p_token["done_at"]
-            await self._consume(job, p_en2s, results, dstats, None, done_at)
+            await self._consume(job, p_en2s, results, dstats, None, done_at,
+                                p_t0, len(pending))
         return done_at
 
     async def _consume(
         self, job: Job, en2s: list[bytes], results, dstats,
-        t_last: float | None, done_at: float,
+        t_last: float | None, done_at: float, dispatched_at: float,
+        in_flight: int,
     ) -> float:
         """Account one drained device call and emit its shares.
 
@@ -1031,13 +1033,19 @@ class MiningEngine:
         restarted at each extranonce2 roll, so a call drained just after
         a slow host hop sampled a rate of hundreds of GH/s, and the
         failure detector restarted a healthy engine below a quarter of
-        that peak. Returns the new t_last.
+        that peak. Nor is that time shorter than the call's own since its
+        dispatch (``dispatched_at``) shared among the ``in_flight`` calls
+        the searcher keeps: a device whose calls overlap (ethash's light
+        and full tiers, each on a stream of its own) can answer two calls
+        milliseconds apart, and their gap alone sampled tens of times the
+        card's rate. Returns the new t_last.
         """
         if not isinstance(results, list):
             results = [results]
         hashes = sum(r.hashes for r in results)
-        dstats.record_batch(hashes,
-                            0.0 if t_last is None else done_at - t_last)
+        seconds = 0.0 if t_last is None else max(
+            done_at - t_last, (done_at - dispatched_at) / in_flight)
+        dstats.record_batch(hashes, seconds)
         self.stats.hashes += hashes
         for result in results:
             await self._emit_shares(job, en2s[0], result)

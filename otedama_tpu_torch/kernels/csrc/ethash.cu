@@ -18,9 +18,9 @@
 //     _result_limbs :462); WINNERS compacted as lane offsets. The full tier
 //     reads each page from the DAG, the light tier derives its two items
 //     from the cache (B7a's item core);
-//   - B7c, verify_kernel: hashimoto_verify_device (:542), the light core
-//     over rows of (header hash, nonce, target limbs); FAILURES compacted as
-//     row offsets. The min top limb covers every in-range lane.
+//   - B7c, verify_kernel: hashimoto_verify_device (:542), B7b light's core
+//     over rows of (header hash, 64-bit nonce, target limbs); FAILURES
+//     compacted as row offsets. The min top limb covers every in-range lane.
 // The buffer is the shared uint32[2k+3] (sha256_device.cuh): slots taken
 // with atomicAdd, a one-thread finalize sorts them by offset, so for n <= k
 // it equals the reference's lane-order compaction word for word.
@@ -52,10 +52,15 @@
 //     in registers: the 64 accesses are unrolled, so mix[a % 32] is a
 //     register and not a local-memory index; a page is 8 x 16-byte
 //     ld.global.nc;
-//   - B7c: integer instructions (128 items a hash, a thread a share, the
-//     one-thread core derive_item and hashimoto_light). Its access loop
-//     stays rolled (an item is ~25k instructions); mix[a % 32] is picked
-//     from the 32 registers by masks (pick); `%` divides.
+//   - B7c: latency. The ledger calls it on ~1,024 shares, 16 blocks on 132
+//     SMs, so a call lasts as long as one share's dependent chain: 64
+//     accesses, each deriving the page that the last one's mix picked, and
+//     256 parent rows an item, each picked by the mix the last row left:
+//     16,384 dependent row reads through L2 once a page's two items are
+//     derived side by side. It runs B7b light's pair of threads a share
+//     (light_pair, a quad two shares), so that each step is a shuffle, a
+//     fastmod and a row load; a pair past the count hashes the call's
+//     last row again and judges nothing.
 // Every loop is fully inlined: no call, no stack, no local array
 // (chip_smoke.py phase 1 fails otherwise).
 #include <cstdint>
@@ -66,10 +71,9 @@
 
 // A counting build (-DETHASH_COUNT, ethash_cuda.instruction_counts) unrolls
 // every loop and holds only straight-line kernels whose SASS is what a
-// thread executes: dag_kernel (an item of the quad core), search_full_kernel,
-// item1_count_kernel (an item of the one-thread core) and
-// light1_count_kernel / light2_count_kernel (a thread of B7b light with one
-// and two accesses: their difference is an access).
+// thread executes: dag_kernel (an item of the quad core), search_full_kernel
+// and light1_count_kernel / light2_count_kernel (a thread of B7b light and
+// B7c with one and two accesses: their difference is an access).
 #ifdef ETHASH_COUNT
 #define ETHASH_ROLLED _Pragma("unroll")
 #else
@@ -212,43 +216,6 @@ __device__ __forceinline__ void keccak512(uint32_t w[16]) {
   }
 }
 
-// one dataset item (_derive_items_device): B7a's work, and the light tier's
-// twice an access
-__device__ __forceinline__ void derive_item(const uint4* __restrict__ cache,
-                                            uint32_t rows, uint32_t idx,
-                                            uint32_t mix[16]) {
-  const uint4* row = cache + static_cast<size_t>(idx % rows) * 4;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v = __ldg(row + q);
-    mix[4 * q] = v.x;
-    mix[4 * q + 1] = v.y;
-    mix[4 * q + 2] = v.z;
-    mix[4 * q + 3] = v.w;
-  }
-  mix[0] ^= idx;
-  keccak512<16>(mix);
-  ETHASH_ROLLED
-  for (int j0 = 0; j0 < kParents; j0 += 16) {
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const uint32_t parent = fnv(idx ^ static_cast<uint32_t>(j0 + jj), mix[jj]) % rows;
-      const uint4* p = cache + static_cast<size_t>(parent) * 4;
-      uint4 v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = __ldg(p + q);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        mix[4 * q] = fnv(mix[4 * q], v[q].x);
-        mix[4 * q + 1] = fnv(mix[4 * q + 1], v[q].y);
-        mix[4 * q + 2] = fnv(mix[4 * q + 2], v[q].z);
-        mix[4 * q + 3] = fnv(mix[4 * q + 3], v[q].w);
-      }
-    }
-  }
-  keccak512<16>(mix);
-}
-
 // s = keccak-512(header hash || nonce as 64-bit LE)
 __device__ __forceinline__ void seed_words(const uint32_t hh[8], uint32_t nonce_lo,
                                            uint32_t nonce_hi, uint32_t s[16]) {
@@ -299,42 +266,6 @@ __device__ __forceinline__ void init_mix(const uint32_t s[16], uint32_t mix[32])
   for (int i = 0; i < 32; ++i) mix[i] = s[i & 15];
 }
 
-// mix[a % 32] for a rolled loop's a, from registers: each word masked by
-// a predicate made in inline PTX. (A plain select chain is turned back into
-// an indexed load, and the mix then lives in a local-memory array.)
-__device__ __forceinline__ uint32_t pick(const uint32_t mix[32], uint32_t a) {
-  uint32_t m = 0;
-#pragma unroll
-  for (uint32_t w = 0; w < 32; ++w) {
-    uint32_t take;
-    asm("{\n\t.reg .pred p;\n\tsetp.eq.u32 p, %1, %2;\n\tselp.b32 %0, -1, 0, p;\n\t}"
-        : "=r"(take)
-        : "r"(a & 31), "r"(w));
-    m |= mix[w] & take;
-  }
-  return m;
-}
-
-// the light core: each page's two items derived from the cache
-__device__ __forceinline__ void hashimoto_light(const uint4* __restrict__ cache,
-                                                uint32_t rows, uint32_t n_pages,
-                                                const uint32_t s[16], uint32_t h[8]) {
-  uint32_t mix[32];
-  init_mix(s, mix);
-  ETHASH_ROLLED
-  for (uint32_t a = 0; a < kAccesses; ++a) {
-    const uint32_t page = fnv(a ^ s[0], pick(mix, a)) % n_pages;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      uint32_t item[16];
-      derive_item(cache, rows, 2 * page + half, item);
-#pragma unroll
-      for (int w = 0; w < 16; ++w) mix[16 * half + w] = fnv(mix[16 * half + w], item[w]);
-    }
-  }
-  seal(s, mix, h);
-}
-
 // the full core: each page 8 x 16 bytes from the DAG, read past L1
 __device__ __forceinline__ void hashimoto_full(const uint4* __restrict__ dag,
                                                uint32_t n_pages, const uint32_t s[16],
@@ -359,7 +290,7 @@ __device__ __forceinline__ void hashimoto_full(const uint4* __restrict__ dag,
   seal(s, mix, h);
 }
 
-// -- the quad core (B7a, B7b light) ---------------------------------------------
+// -- the quad core (B7a, B7b light, B7c) -----------------------------------------
 
 // p != 0 ? a : b in a predicated select that the compiler keeps as one (a
 // select chain in C++ is turned back into an indexed load, and the words
@@ -479,22 +410,23 @@ __device__ __forceinline__ void light_access(uint32_t a, uint32_t mix[16], uint3
   for (int w = 0; w < 16; ++w) mix[w] = fnv(mix[w], item[w]);
 }
 
-// B7b light for the pair of threads that hashes `nonce`: the pair's first
-// thread (half 0) runs the seed keccak-512 and the keccak-256 seal, each
-// thread holds half `half` of the 32-word mix and derives that half's item
-// of every page, beside the quad's other pair. The result's limbs land in h
-// on the first thread only. Every lane of the warp calls it. accesses: 64,
-// the loop rolled; the counting build's 1 or 2 are written out (a loop of
-// two is left rolled there), from the opaque access a0.
+// The light hash (B7b light, B7c) for the pair of threads that hashes the
+// header hash hh with the 64-bit nonce (lo, hi): the pair's first thread
+// (half 0) runs the seed keccak-512 and the keccak-256 seal from its hh,
+// each thread holds half `half` of the 32-word mix and derives that half's
+// item of every page, beside the quad's other pair. The result's limbs land
+// in h on the first thread only. Every lane of the warp calls it. accesses:
+// 64, the loop rolled; the counting build's 1 or 2 are written out (a loop
+// of two is left rolled there), from the opaque access a0.
 template <int accesses>
-__device__ __forceinline__ void light_pair(const uint32_t hh[8], uint32_t nonce,
+__device__ __forceinline__ void light_pair(const uint32_t hh[8], uint32_t lo, uint32_t hi,
                                            const uint4* __restrict__ cache, uint32_t rows,
                                            uint64_t rows_magic, uint32_t n_pages,
                                            uint64_t pages_magic, uint32_t q, uint32_t a0,
                                            uint32_t h[8]) {
   const uint32_t half = q & 1;
   uint32_t s[16] = {};
-  if (half == 0) seed_words(hh, nonce, 0u, s);
+  if (half == 0) seed_words(hh, lo, hi, s);
 #pragma unroll
   for (int w = 0; w < 16; ++w) s[w] = __shfl_sync(kFull, s[w], q & 2, 4);
   const uint32_t s0a = __shfl_sync(kFull, s[0], 0, 4);
@@ -577,7 +509,7 @@ __device__ __forceinline__ void search_light(const EthJob& job, const uint4* __r
   const uint32_t i = t >> 1;
   uint32_t h[8];
   // every pair takes part (the last quad may reach past n)
-  light_pair<accesses>(job.hh, job.base + first + i, cache, rows, rows_magic, n_pages,
+  light_pair<accesses>(job.hh, job.base + first + i, 0u, cache, rows, rows_magic, n_pages,
                        pages_magic, threadIdx.x & 3u, a0, h);
   uint32_t best = kNoWinner;
   if ((t & 1u) == 0 && i < n) {
@@ -589,21 +521,9 @@ __device__ __forceinline__ void search_light(const EthJob& job, const uint4* __r
 
 #ifdef ETHASH_COUNT
 
-// the counting build's own kernels: an item of the one-thread core (B7c's),
-// and a thread of B7b light with one and with two accesses (from the access
-// `first`, opaque to the compiler as a loop's index is)
-extern "C" __global__ void __launch_bounds__(kThreads)
-    item1_count_kernel(const uint4* __restrict__ cache, uint32_t rows, uint32_t first,
-                       uint4* __restrict__ dag) {
-  const uint32_t idx = first + blockIdx.x * kThreads + threadIdx.x;
-  uint32_t item[16];
-  derive_item(cache, rows, idx, item);
-  uint4* out = dag + static_cast<size_t>(idx) * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    out[r] = make_uint4(item[4 * r], item[4 * r + 1], item[4 * r + 2], item[4 * r + 3]);
-}
-
+// the counting build's own kernels: a thread of B7b light with one and with
+// two accesses (from the access `first`, opaque to the compiler as a loop's
+// index is)
 extern "C" __global__ void __launch_bounds__(kThreads)
     light1_count_kernel(const EthJob job, const uint4* __restrict__ cache, uint32_t rows,
                         uint64_t rows_magic, uint32_t n_pages, uint64_t pages_magic,
@@ -630,27 +550,37 @@ extern "C" __global__ void __launch_bounds__(kThreads)
                           k, 0u);
 }
 
-// B7c: rows first .. first + n - 1: hh [rows, 8] LE header-hash words,
-// nonces [rows, 2] (the 64-bit LE nonce as two words), limbs [rows, 8]
+// B7c: rows first .. first + n - 1 (n >= 1): hh [rows, 8] LE header-hash
+// words, nonces [rows, 2] (the 64-bit LE nonce as two words), limbs [rows,
+// 8]. Two threads a share, a quad two (light_pair); the pair's first thread
+// loads the row and judges it. A pair past n hashes row first + n - 1 again
+// (every pair of a quad takes part in its shuffles) and reads no row past
+// the call's.
 extern "C" __global__ void __launch_bounds__(kThreads)
     verify_kernel(const uint32_t* __restrict__ hh, const uint32_t* __restrict__ nonces,
                   const uint32_t* __restrict__ limbs, const uint4* __restrict__ cache,
-                  uint32_t rows, uint32_t n_pages, uint32_t first, uint32_t n,
-                  uint32_t* out, int k) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  uint32_t best = kNoWinner;
-  if (i < n) {
-    const size_t r = static_cast<size_t>(first) + i;
-    uint32_t hw[8], t[8], s[16], h[8];
+                  uint32_t rows, uint64_t rows_magic, uint32_t n_pages, uint64_t pages_magic,
+                  uint32_t first, uint32_t n, uint32_t* out, int k) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t i = t >> 1;
+  const bool judge = (t & 1u) == 0 && i < n;
+  const size_t r = static_cast<size_t>(first) + (i < n ? i : n - 1);
+  uint32_t hw[8] = {}, lo = 0, hi = 0, h[8];
+  if ((t & 1u) == 0) {
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      hw[w] = __ldg(&hh[r * 8 + w]);
-      t[w] = __ldg(&limbs[r * 8 + w]);
-    }
-    seed_words(hw, __ldg(&nonces[r * 2]), __ldg(&nonces[r * 2 + 1]), s);
-    hashimoto_light(cache, rows, n_pages, s, h);
+    for (int w = 0; w < 8; ++w) hw[w] = __ldg(&hh[r * 8 + w]);
+    lo = __ldg(&nonces[r * 2]);
+    hi = __ldg(&nonces[r * 2 + 1]);
+  }
+  light_pair<kAccesses>(hw, lo, hi, cache, rows, rows_magic, n_pages, pages_magic,
+                        threadIdx.x & 3u, 0u, h);
+  uint32_t best = kNoWinner;
+  if (judge) {
+    uint32_t tg[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) tg[w] = __ldg(&limbs[r * 8 + w]);
     best = h[0];
-    if (!limbs_le(h, t)) take_slot(out, k, first + static_cast<uint32_t>(i), h[0]);
+    if (!limbs_le(h, tg)) take_slot(out, k, first + i, h[0]);
   }
   block_min_to<kThreads>(best, &out[2 * k + 2]);
 }
@@ -680,6 +610,35 @@ extern "C" __global__ void __launch_bounds__(kThreads)
     }
   }
   if (acc == 0x5EED5EEDu) sink[t] = acc;
+}
+
+// Not a port: a probe of the latency of B7c's step, one dependent cache-row
+// read. Each quad of the one warp launched walks a chain of `steps` rows
+// (a multiple of 16) of the cache, a quarter a thread, as derive_quad
+// reads them: step j's row is fastmod(fnv(j, word), rows) of word j % 16 of
+// the row it loaded last, broadcast by a shuffle from the thread that holds
+// it, and the row is folded into the thread's quarter. sink as the L2
+// probe's.
+extern "C" __global__ void __launch_bounds__(kThreads)
+    chase_probe_kernel(const uint4* __restrict__ cache, uint32_t rows, uint64_t rows_magic,
+                       uint32_t steps, uint32_t* sink) {
+  const uint4* quarter = cache + (threadIdx.x & 3u);
+  uint4 v = __ldg(quarter + static_cast<size_t>(threadIdx.x >> 2) * 4);
+  uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll 1
+  for (uint32_t j0 = 0; j0 < steps; j0 += 16) {
+#pragma unroll
+    for (uint32_t jj = 0; jj < 16; ++jj) {
+      const uint32_t word = __shfl_sync(kFull, x[jj & 3], jj >> 2, 4);
+      v = __ldg(quarter + static_cast<size_t>(fastmod(fnv(j0 + jj, word), rows_magic, rows)) * 4);
+      x[0] = fnv(x[0], v.x);
+      x[1] = fnv(x[1], v.y);
+      x[2] = fnv(x[2], v.z);
+      x[3] = fnv(x[3], v.w);
+    }
+  }
+  const uint32_t acc = x[0] ^ x[1] ^ x[2] ^ x[3];
+  if (acc == 0x5EED5EEDu) sink[threadIdx.x] = acc;
 }
 
 namespace {
@@ -767,9 +726,10 @@ int otedama_ethash_verify(const uint32_t* hh, const uint32_t* nonces,
   init_buffer<<<1, 64, 0, st>>>(out, k);
   for (uint64_t first = 0; first < count; first += kLaunchLanes) {
     const uint64_t n = count - first < kLaunchLanes ? count - first : kLaunchLanes;
-    verify_kernel<<<blocks_for(n), kThreads, 0, st>>>(
-        hh, nonces, limbs, reinterpret_cast<const uint4*>(cache), rows, n_pages,
-        static_cast<uint32_t>(first), static_cast<uint32_t>(n), out, k);
+    verify_kernel<<<blocks_for(2 * n), kThreads, 0, st>>>(
+        hh, nonces, limbs, reinterpret_cast<const uint4*>(cache), rows, magic_of(rows),
+        n_pages, magic_of(n_pages), static_cast<uint32_t>(first), static_cast<uint32_t>(n),
+        out, k);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -787,6 +747,18 @@ int otedama_ethash_l2_probe(const uint32_t* buf, unsigned int row_bits, unsigned
     return static_cast<int>(cudaErrorInvalidValue);
   l2_probe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint4*>(buf), row_bits, steps, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chase probe on `stream`, without synchronizing: one warp of
+// chase_probe_kernel over the cache (device, rows x 16 words), each quad
+// walking `steps` (a multiple of 16) dependent rows; sink: device, 32
+// words. Returns a cudaError_t.
+int otedama_ethash_chase_probe(const uint32_t* cache, unsigned int rows, unsigned int steps,
+                               uint32_t* sink, void* stream) {
+  if (rows < 8 || steps % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  chase_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint4*>(cache), rows, magic_of(rows), steps, sink);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,11 +17,12 @@ carries a numpy epoch (the reference's ``[rows, 16]`` cache and ``[n_items,
 16]`` DAG, uint32) onto a device, as the tests do with the reference's
 native-built cache.
 
-B7a and B7b light share one item core (a quad of threads derives four
-items); their run-time moduli ``% rows`` and ``% n_pages`` are a
-multiply-high by a magic number that the C entry points make.
-``l2_probe`` times the L2's rate for the rows that core reads (a
-measurement, on no path).
+B7a, B7b light and B7c share one item core (a quad of threads derives
+four items; B7b light and B7c hash with two threads a nonce or share);
+their run-time moduli ``% rows`` and ``% n_pages`` are a multiply-high by
+a magic number that the C entry points make. ``l2_probe`` times the L2's
+rate for the rows that core reads, ``chase_probe`` the latency of one
+dependent row read, B7c's step (measurements, on no path).
 
 Each wrapper launches on a CUDA stream without synchronizing and returns
 its device result (the search and verify: the ``uint32[2k+3]`` buffer as
@@ -72,6 +73,7 @@ _SIGNATURES = {
     "otedama_ethash_search": [_P, _I, _P, _U, _U, _ULL, _I, _P, _P],
     "otedama_ethash_verify": [_P, _P, _P, _ULL, _P, _U, _U, _I, _P, _P],
     "otedama_ethash_l2_probe": [_P, _U, _U, _U, _P, _P],
+    "otedama_ethash_chase_probe": [_P, _U, _U, _P, _P],
     "otedama_ethash_kernel_info": [_I] + [ctypes.POINTER(ctypes.c_int)] * 4,
 }
 
@@ -258,10 +260,11 @@ def ethash_verify(full_size: int, cache: torch.Tensor, hh: torch.Tensor,
                   nonces: torch.Tensor, limbs: torch.Tensor, count: int, *,
                   k: int, stream: torch.cuda.Stream | None = None,
                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """Validate the first ``count`` shares in ONE launch of B7c: ``hh``
-    int32 ``[N, 8]`` (header-hash words), ``nonces`` int32 ``[N, 2]``
-    (``share_rows``), ``limbs`` int32 ``[N, 8]`` (each share's target,
-    most-significant first), against the epoch ``cache``. Returns the
+    """Validate the first ``count`` shares in ONE launch of B7c (two
+    threads a share): ``hh`` int32 ``[N, 8]`` (header-hash words),
+    ``nonces`` int32 ``[N, 2]`` (``share_rows``: the 64-bit nonce),
+    ``limbs`` int32 ``[N, 8]`` (each share's target, most-significant
+    first), against the epoch ``cache``; no row past ``count`` is read. Returns the
     ``uint32[2k+3]`` failure buffer (row offsets, their top limbs, the
     count — past ``k`` an overflow — and the min top limb over the
     ``count`` rows) as an int32 tensor.
@@ -333,6 +336,36 @@ def l2_probe(buf: torch.Tensor, blocks: int, steps: int, *,
     return probe_bytes(blocks, steps)
 
 
+CHASE_STEPS = 16_384    # a share's dependent row reads: 64 accesses x 256
+
+
+def chase_probe(cache: torch.Tensor, steps: int = CHASE_STEPS, *,
+                stream: torch.cuda.Stream | None = None,
+                sink: torch.Tensor | None = None) -> None:
+    """One launch of the chase probe (``csrc/ethash.cu``
+    ``chase_probe_kernel``, on no path: a measurement) on ``stream``, not
+    waited for: one warp whose quads each walk ``steps`` (a multiple of
+    16) dependent rows of the epoch ``cache`` (int32 ``[rows, 16]`` on the
+    card), each row picked by fastmod of a word of the row before, as
+    B7c's item core steps. Its time over ``steps`` is a dependent row
+    read's."""
+    device = _card(cache.device)
+    _check_source("cache", cache, 16, device)
+    if steps % 16 or cache.shape[0] < 8:
+        raise ValueError(f"steps {steps} must be a multiple of 16, the "
+                         f"cache at least 8 rows (got {cache.shape[0]})")
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    if sink is None:
+        with torch.cuda.stream(stream):
+            sink = torch.empty(32, dtype=torch.int32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        _check(lib, lib.otedama_ethash_chase_probe(
+            cache.data_ptr(), cache.shape[0], steps, sink.data_ptr(),
+            stream.cuda_stream), "ethash_chase_probe")
+
+
 def probe_bytes(blocks: int, steps: int) -> int:
     """The bytes one launch of ``blocks`` probe blocks of ``steps`` steps
     reads."""
@@ -371,8 +404,16 @@ def kernel_info(device, kernels=KERNELS) -> list[dict]:
 
 # the counting build's kernels: (key, kernel)
 COUNTED = (("item", "dag_kernel"), ("full", "search_full_kernel"),
-           ("item1", "item1_count_kernel"), ("light1", "light1_count_kernel"),
-           ("light2", "light2_count_kernel"))
+           ("light1", "light1_count_kernel"), ("light2", "light2_count_kernel"))
+
+# the integer instructions (ALU and FMA pipes) an item of the first B7
+# design's one-thread item core executed (a thread an item, `%` by a
+# run-time divisor), from the SASS of its counting build on an NVIDIA H100
+# 80GB HBM3: the bounds of B7a, B7b light and B7c take the smaller of this
+# and the quad core's count (``lane_ops``), as B6's take
+# ``x11_cuda.ONE_KERNEL_CHAIN``, so that a design can lower a bound but
+# never raise it
+ONE_THREAD_ITEM = 19_809
 
 
 def instruction_counts() -> dict[str, dict]:
@@ -380,9 +421,9 @@ def instruction_counts() -> dict[str, dict]:
     ``csrc/ethash.cu``'s counting build (``-DETHASH_COUNT``: every loop
     unrolled, each kernel straight-line code, frame included): ``"item"``
     a thread of B7a (an item: a quad derives four), ``"full"`` a thread of
-    the full search (a hash), ``"item1"`` an item of the one-thread core
-    (B7c's), ``"light1"`` and ``"light2"`` a thread of B7b light (half a
-    hash) with one and with two accesses; and the build's ``seconds``.
+    the full search (a hash), ``"light1"`` and ``"light2"`` a thread of
+    B7b light and B7c (half a hash) with one and with two accesses; and
+    the build's ``seconds``.
     Needs ``nvcc`` and ``cuobjdump``, not a card. Raises if a loop is
     left."""
     info = cuda_build.cubin(SOURCE, HEADERS, ("ETHASH_COUNT",))
@@ -404,29 +445,28 @@ INT_LANES_PER_SM = 128
 
 def lane_ops(counts: dict, kind: str) -> tuple[int, str]:
     """Integer instructions (ALU and FMA pipes) a lane of ``kind`` runs,
-    and whose count it is: ``full`` a hash of the full tier; ``verify`` a
-    hash of the one-thread light core (B7c's), counted as the full tier's
-    hash (its access loop, seed and seal) plus 128 items' of that core;
-    ``dag`` an item and ``light`` a hash of B7b light, each the smaller of
-    the quad core's count (``item``; two threads' ``light1`` and 63 more
-    accesses, the difference of ``light2`` and ``light1``) and the
-    one-thread core's (``item1``; ``verify``'s), as B6's bound takes the
+    and whose count it is: ``full`` a hash of the full tier; ``dag`` an
+    item; ``light`` and ``verify`` a light hash (B7b light and B7c run one
+    core). ``dag`` and the light hash take the smaller of the quad core's
+    count (``item``; two threads' ``light1`` and 63 more accesses, the
+    difference of ``light2`` and ``light1``) and the one-thread core's
+    (``ONE_THREAD_ITEM`` an item; a light hash the full tier's hash, its
+    access loop, seed and seal, plus 128 items), as B6's bound takes the
     smaller of its two designs' (``x11_cuda.bound_chain``)."""
     ops = {key: c["alu"] + c["fma"] for key, c in counts.items()
            if isinstance(c, dict)}
-    one = {"dag": ops["item1"],
-           "light": ops["full"] + 2 * eth.ACCESSES * ops["item1"]}
     if kind == "full":
         return ops["full"], "the full tier's counting build"
-    if kind == "verify":
-        return one["light"], "the one-thread core's counting build"
+    kind = "light" if kind == "verify" else kind
+    one = {"dag": ONE_THREAD_ITEM,
+           "light": ops["full"] + 2 * eth.ACCESSES * ONE_THREAD_ITEM}[kind]
     access = ops["light2"] - ops["light1"]
     quad = {"dag": ops["item"],
             "light": 2 * (ops["light1"] + (eth.ACCESSES - 1) * access)}[kind]
-    if quad <= one[kind]:
+    if quad <= one:
         return quad, "the quad core's counting build"
-    return one[kind], ("the one-thread core's counting build (smaller than "
-                       "the quad core's)")
+    return one, ("the one-thread core's count (ONE_THREAD_ITEM, smaller "
+                 "than the quad core's)")
 
 
 def bound_ms(kind: str, lanes: int, counts: dict, *, sms: int,

@@ -33,8 +33,9 @@ call):
   call, back to back and with the host's enqueue hidden;
 - B7 at epoch 0 (the cache from the compiled generator): B7a
   (``build_dag``) per DAG, B7b light (``ethash_search``) per call at 2^14
-  lanes and the engine's 2^18, and as controls B7b full at 2^24 lanes and
-  B7c (``ethash_verify``, k = 16, 5 planted failures) per 1,024-share call.
+  lanes and the engine's 2^18, B7c (``ethash_verify``, k = 16, 5 planted
+  failures) per call of 1,024 shares and of one, and as a control B7b full
+  at 2^24 lanes.
 
 Every process makes the same inputs from one seed and reports a digest
 of each output (for B1 also at counts 1, 3, 256 x 37 + 1, across 2^32,
@@ -47,7 +48,9 @@ a window whose nonces wrap past 2^32, each shavite counter order, and
 verify calls at counts 0, 1, 1,000 and 1,024; for B7 the whole epoch-0
 DAG, light searches at counts 0, 1 and 37, one past a 64-lane and a
 128-lane block, an overflowed window — count and min — and a window
-whose nonces wrap past 2^32, a full search and the verify call); the
+whose nonces wrap past 2^32, a full search, and verify calls at counts 0,
+1, 3, 129, 1,023 and 1,024 with 64-bit nonces, the rows past each count
+failing ones); the
 script fails unless A's digests equal B's. It needs a
 CUDA card and prints the card's name and power limit first and last.
 """
@@ -371,6 +374,7 @@ def _time_b6(xc, dev, on_card, times, digests) -> None:
 B7_LIGHT_LANES = (1 << 14, 1 << 18)   # the engine's light call: 2^18
 B7_FULL_LANES = 1 << 24
 B7_SHARES = 1024
+B7C_COUNTS = (0, 1, 3, 129, 1023, 1024)
 
 
 def _time_b7(dev, on_card, times, digests) -> None:
@@ -417,19 +421,23 @@ def _time_b7(dev, on_card, times, digests) -> None:
                          batch=B7_FULL_LANES, k=K, full=True, out=out)
 
     times[f"B7b full {B7_FULL_LANES} lanes"] = time_ms(full, 3)
+    nonces = rng.integers(0, 1 << 64, B7_SHARES, dtype=np.uint64)
+    nonces[:3] = [(1 << 64) - 1, 1 << 63, 1 << 32]
     rows_h, rows_n = ec.share_rows(
-        rng.integers(0, 256, (B7_SHARES, 32), dtype=np.uint8),
-        rng.integers(0, 1 << 32, B7_SHARES, dtype=np.uint64))
+        rng.integers(0, 256, (B7_SHARES, 32), dtype=np.uint8), nonces)
     limbs = np.full((B7_SHARES, 8), 0xFFFFFFFF, np.uint32)
     limbs[[0, 100, 511, 512, 1023]] = 0
     rows = [on_card(x) for x in (rows_h, rows_n, limbs)]
-    digests["B7c verify"] = _kept(ec.ethash_verify(full_size, cache, *rows,
-                                                   B7_SHARES, k=K, out=out))
+    for count in B7C_COUNTS:
+        past = limbs.copy()
+        past[count:] = 0          # rows past the count would all fail
+        digests[f"B7c verify, count {count}"] = _kept(ec.ethash_verify(
+            full_size, cache, *rows[:2], on_card(past), count, k=K, out=out))
+    for count in (B7_SHARES, 1):
+        def verify(count=count):
+            ec.ethash_verify(full_size, cache, *rows, count, k=K, out=out)
 
-    def verify():
-        ec.ethash_verify(full_size, cache, *rows, B7_SHARES, k=K, out=out)
-
-    times[f"B7c verify {B7_SHARES} shares"] = time_ms(verify, 5)
+        times[f"B7c verify {count} share(s)"] = time_ms(verify, 5)
 
 
 # -- the parent: both trees in turns ----------------------------------------------

@@ -377,3 +377,55 @@ async def test_an_overflowing_old_call_emits_before_the_new_jobs_first_group():
         f"the old job's last share came {max(old) - new_group_done:.3f} s "
         "after the new job's first group had run")
     assert engine.supervisors["stub"].searcher_restarts == 0
+
+
+class OverlapStub:
+    """A device whose calls overlap, as ethash's light and full tiers do
+    on two streams of one card: every call takes ``CALL_S`` on a thread of
+    its own, so the two calls in flight answer microseconds apart; no
+    winner."""
+
+    name = "stub"
+
+    def __init__(self):
+        self.calls = 0
+
+    def search(self, jc, base, count):
+        self.calls += 1
+        time.sleep(CALL_S)
+        return search.SearchResult([], count, 0xFFFFFFFF)
+
+
+@pytest.mark.asyncio
+async def test_overlapping_calls_do_not_spike_the_hashrate(monkeypatch):
+    """Two calls in flight that run side by side answer almost at once:
+    the second's hashes over the gap between the answers alone would be a
+    rate far above the device's, which the failure detector then takes as
+    the peak to hold the engine to (and restarts it below a quarter of
+    it). The sample's time is at least the call's own since its dispatch,
+    shared among the calls in flight."""
+    from otedama_tpu_torch.engine.types import DeviceStats
+
+    stub = OverlapStub()
+    engine = MiningEngine({"stub": stub}, config=EngineConfig(
+        batch_size=ROLL_BATCH, auto_batch=False, pipeline_depth=2))
+    peak = [0.0]
+    record = DeviceStats.record_batch
+
+    def traced(self, hashes, seconds, alpha=0.3):
+        record(self, hashes, seconds, alpha)
+        peak[0] = max(peak[0], self.hashrate)
+
+    monkeypatch.setattr(DeviceStats, "record_batch", traced)
+    await engine.start()
+    try:
+        engine.set_job(Job(**_job_fields("first", 1_700_000_000)))
+        deadline = time.monotonic() + 10.0
+        while stub.calls < 12:
+            assert time.monotonic() < deadline, f"{stub.calls} calls"
+            await asyncio.sleep(0.005)
+    finally:
+        await engine.stop()
+    # two calls at a time, each CALL_S: the device's rate
+    device_rate = 2 * ROLL_BATCH / CALL_S
+    assert 0 < peak[0] <= 1.2 * device_rate

@@ -248,24 +248,34 @@ def test_kernel_source_constants():
     assert f"kFnvPrime = {eth.FNV_PRIME:#010x}u;" in src
     assert f"kParents = {eth.DATASET_PARENTS};" in src
     assert f"kAccesses = {eth.ACCESSES};" in src
+    # B7c runs the quad core: the one-thread core is gone, its count a
+    # constant for the bounds
+    assert ethash_cuda.ONE_THREAD_ITEM == 19_809
+    for gone in (r"\bderive_item\b", r"\bhashimoto_light\(", r"\bpick\(",
+                 r"\bitem1_count_kernel\b"):
+        assert not re.search(gone, src), gone
+    assert "item1" not in dict(ethash_cuda.COUNTED)
 
 
-@pytest.mark.parametrize("kind", ["dag", "light"])
+@pytest.mark.parametrize("kind", ["dag", "light", "verify"])
 @pytest.mark.parametrize("quad_smaller", [True, False])
 def test_bounds_take_the_smaller_item_core(kind, quad_smaller):
-    """The bounds of B7a and B7b light count the smaller of the quad core's
-    and the one-thread core's integer instructions, and say whose."""
+    """The bounds of B7a, B7b light and B7c count the smaller of the quad
+    core's integer instructions and the one-thread core's (a constant),
+    and say whose; B7c's hash is B7b light's."""
     def pipes(n):
         return {"total": n + 7, "alu": n - n // 3, "fma": n // 3, "shfl": 7}
 
     per_access = 10_000 if quad_smaller else 40_000
-    counts = {"seconds": 1.0, "item1": pipes(20_000), "full": pipes(14_000),
+    item1 = ethash_cuda.ONE_THREAD_ITEM
+    counts = {"seconds": 1.0, "full": pipes(14_000),
               "item": pipes(per_access), "light1": pipes(40_000),
               "light2": pipes(40_000 + per_access)}
+    light = "light" if kind == "verify" else kind
     quad = {"dag": per_access,
-            "light": 2 * (40_000 + (eth.ACCESSES - 1) * per_access)}[kind]
-    one = {"dag": 20_000,
-           "light": 14_000 + 2 * eth.ACCESSES * 20_000}[kind]
+            "light": 2 * (40_000 + (eth.ACCESSES - 1) * per_access)}[light]
+    one = {"dag": item1,
+           "light": 14_000 + 2 * eth.ACCESSES * item1}[light]
     assert (quad < one) == quad_smaller
     ops, whose = ethash_cuda.lane_ops(counts, kind)
     assert ops == min(quad, one)
